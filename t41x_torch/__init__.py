@@ -1,0 +1,26 @@
+"""t41x_torch — the t41x software-defined-radio framework in PyTorch.
+
+A port of `t41x` (JAX/Pallas on a TPU) to PyTorch and hand-written CUDA
+kernels for one NVIDIA H100.  Each module sits at the same relative path
+as its `t41x` twin and keeps its inputs, outputs and carried-state
+layout, so the two are held equal on the same input
+(`tests/test_torch_*.py`).  The package imports torch and NumPy, never
+JAX: the design-time code (`constants`, `utils.windows`,
+`dsp.firdesign`, the operator constructors in `dsp.iir` / `dsp.osfilter`)
+is a copy pinned equal to `t41x`'s.
+
+    t41x_torch.chain.RxChain, ChainSpec — the receive chain
+    t41x_torch.kernels.*                 — the CUDA kernels and their
+                                           plain PyTorch versions
+"""
+
+import torch
+
+from t41x_torch import constants  # noqa: F401
+
+# Full fp32 on the audio path: a TF32 product keeps ~3 decimal digits,
+# and reduced matmul precision cost the TPU chain 48.9 dB of audio
+# parity against a 55 dB budget.  cuDNN convolutions (the plain FIR
+# stages) default to TF32 on the card, so both switches are pinned.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

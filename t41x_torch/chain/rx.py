@@ -1,0 +1,407 @@
+"""The receive chain in torch: port of `t41x.chain.rx` for the SSB slice.
+
+One block of the reference's per-block hot path (`ProcessIQData`,
+tmr4/T41_SDR `Process.cpp:70-944`):
+
+    q15->f32, RF gain, DC block, IQ correction, zoom-x1 panadapter tap,
+    Fs/4 shift, NCO mix, x4 + x2 decimation, overlap-save band-pass
+    (+ audio-spectrum / S-meter tap), AGC, USB/LSB demod, x2 + x4
+    interpolation, volume
+
+as `block(params, state, iq) -> (state, outputs)` with every per-channel
+state carried explicitly (`RxState`, the same fields and layouts as
+`t41x`'s, so `t41x_torch.utils.convert` moves a stream between the two
+mid-way) and channels on the leading axes.  `ChainSpec.use_kernels`
+routes the front end, AGC, interpolation and the display-free OS
+filter through the hand-written CUDA kernels of `t41x_torch.kernels`
+(their plain torch versions on CPU tensors).
+
+Ported: modes usb/lsb, `spectrum_zoom` -1 or 0, q15 ingest, clip taps,
+both `spectrum_taps` values.  Every other spec option raises
+`NotImplementedError` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from t41x_torch import constants as C
+from t41x_torch.dsp import agc as agc_mod
+from t41x_torch.dsp import fir, firdesign as fd, iir, nco, osfilter
+from t41x_torch.dsp import spectrum as spectrum_mod
+
+SSB_FAMILY = ("usb", "lsb", "ft8", "cw")
+MODES = SSB_FAMILY + ("am", "sam", "nfm", "psk31")
+NUM_EQ_BANDS = 14
+
+# spec options outside the slice -> the ROADMAP.md item that ports them
+_NOT_PORTED_MODES = {"am": 9, "sam": 9, "nfm": 9, "cw": 11, "ft8": 15,
+                     "psk31": 15}
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainSpec:
+    """Static chain configuration (`t41x.chain.rx.ChainSpec`, with
+    `use_pallas` renamed `use_kernels`)."""
+    mode: str = "usb"
+    f_lo: float = 200.0        # band-pass low cut, Hz (audio domain)
+    f_hi: float = 3000.0       # band-pass high cut, Hz
+    agc_mode: int = 2          # 0 off / 1 long / 2 slow / 3 med / 4 fast
+    agc_thresh_db: float = 20.0
+    nfm_bw: float = 12000.0    # NFM decimator design BW (Filter.cpp:16)
+    nr_mode: int = 0           # 0 off / 1 Kim / 2 spectral / 3 LMS
+    nb_on: bool = False        # LPC impulse noise blanker
+    cw_decode: bool = True     # CW tone detection taps (mode 'cw' only)
+    cw_filter_index: int = 5   # 0..4 narrow audio LPF, 5 = off
+    cw_tone_hz: float = 750.0
+    notch_on: bool = False     # automatic notch (Xanr error output)
+    eq_on: bool = False        # 14-band receive EQ
+    spectrum_zoom: int = -1    # -1 off / 0 zoom x1 / 1..7 zoom x2^z
+    interpolate_out: bool = True
+    use_matmul_osfilter: bool = True
+    use_kernels: bool = False  # CUDA kernels (plain versions on CPU)
+    q15_input: bool = False    # ingest ADC q15 int16 (i, q) pairs
+    spectrum_taps: bool = True  # emit audio-spectrum + S-meter taps
+    clip_taps: bool = False    # emit ADC half/quarter-clip flags
+    sample_rate: float = C.SAMPLE_RATE
+    fft_length: int = C.FFT_LENGTH
+
+    def __post_init__(self):
+        assert self.mode in MODES, self.mode
+
+
+def _check_ported(spec: ChainSpec) -> None:
+    def no(what: str, item: int):
+        raise NotImplementedError(
+            f"{what} is not ported to t41x_torch yet (ROADMAP.md Queue 1 "
+            f"item {item})")
+
+    if spec.mode in _NOT_PORTED_MODES:
+        no(f"mode {spec.mode!r}", _NOT_PORTED_MODES[spec.mode])
+    if spec.nr_mode != 0:
+        no(f"noise reduction nr_mode={spec.nr_mode}", 10)
+    if spec.notch_on:
+        no("the automatic notch", 11)
+    if spec.nb_on:
+        no("the noise blanker", 11)
+    if spec.eq_on:
+        no("the receive EQ", 11)
+    if spec.spectrum_zoom >= 1:
+        no(f"spectrum_zoom={spec.spectrum_zoom} (zoom 2^z)", 12)
+
+
+class ChannelParams(NamedTuple):
+    """Dynamic per-channel parameters, (...,) tensors for a channel batch."""
+    nco_freq: torch.Tensor       # fine-tune NCO, Hz
+    rf_gain_db: torch.Tensor     # rfGainAllBands (dB, Process.cpp:117)
+    band_gain: torch.Tensor      # bands[].RFgain linear scale
+    iq_amp: torch.Tensor         # IQAmpCorrectionFactor
+    iq_phase: torch.Tensor       # IQPhaseCorrectionFactor
+    volume: torch.Tensor         # 0..100
+    eq_gains: torch.Tensor       # (..., 14) EQ band gains 0..1
+
+
+def default_params(channels: tuple[int, ...] = (), nco_freq: float = 0.0,
+                   volume: float = 50.0, device=None) -> ChannelParams:
+    def f(v):
+        return torch.full(channels, v, dtype=torch.float32, device=device)
+
+    return ChannelParams(f(nco_freq), f(0.0), f(1.0), f(1.0), f(0.0),
+                         f(volume),
+                         torch.ones(channels + (NUM_EQ_BANDS,), device=device))
+
+
+class RxState(NamedTuple):
+    """Carried DSP state between blocks (leading dims = channels); the
+    fields of `t41x.chain.rx.RxState`.  Fields of stages outside the
+    slice hold zeros of the same layout, or ()."""
+    dc_bq: torch.Tensor      # (..., 2, 1, 2) DC-block biquad state (I,Q)
+    nco_phase: torch.Tensor  # (...,)
+    dec1: torch.Tensor       # (..., T1-1) complex
+    dec2: torch.Tensor       # (..., T2-1) complex
+    osf: torch.Tensor        # (..., F/2) complex overlap-save history
+    agc: agc_mod.AGCState
+    am_bq: torch.Tensor      # (..., 2, 2) AM cascade (not ported)
+    sam: tuple               # 5 x (...,) SAM PLL state (not ported)
+    nfm_last: torch.Tensor   # (...,) complex (not ported)
+    int1: torch.Tensor       # (..., T/2-1) interpolation histories (real)
+    int2: torch.Tensor
+    smeter_avg: torch.Tensor  # (...,) audioMaxSquaredAve EMA
+    nr: object
+    cw: object
+    cw_lp: object
+    notch: object
+    eq: object
+    zoom: object             # zoom1 EMA (..., 512) with spectrum_zoom=0
+
+
+class RxChain:
+    """Configured receive chain: the spec, the designed filters (NumPy,
+    plus tensors on `device`), and `block` over (params, state, iq)."""
+
+    def __init__(self, spec: ChainSpec = ChainSpec(), device="cpu"):
+        _check_ported(spec)
+        self.spec = spec
+        self.device = torch.device(device)
+        lp = min(max(spec.f_hi, -spec.f_lo), 10_000.0)
+        self.h1 = fd.fir_kaiser(C.dec1_taps(), lp, C.N_ATT,
+                                fs=spec.sample_rate).astype(np.float32)
+        self.h2 = fd.fir_kaiser(C.dec2_taps(), lp, C.N_ATT,
+                                fs=spec.sample_rate / C.DF1
+                                ).astype(np.float32)
+        i1, i2 = fd.interpolation_prototypes(lp)
+        self.hi1 = i1.astype(np.float32)
+        self.hi2 = i2.astype(np.float32)
+
+        mask = fd.bandpass_mask(spec.f_lo, spec.f_hi,
+                                spec.sample_rate / C.DF, spec.fft_length)
+        self.mask = mask.astype(np.complex64)
+        self.os_W = osfilter.os_matmul_operator(mask)
+        self.os_F, self.os_W2, self.os_mask_sq = \
+            osfilter.os_spectrum_operators(mask)
+
+        # DC-block biquad at RF rate (Process.cpp:127), chunk-parallel
+        b, a = fd.dc_block_biquad()
+        self.dc_b = np.asarray([b], np.float32)
+        self.dc_a = np.asarray([a], np.float32)
+        self.dc_op = iir.BiquadChunked(self.dc_b, self.dc_a, chunk=128)
+
+        self.agc_params = agc_mod.agc_params(spec.agc_mode,
+                                             spec.agc_thresh_db,
+                                             spec.sample_rate / C.DF)
+        # SSB level adjust (Process.cpp:482-492)
+        f_cut_khz = (-spec.f_lo if spec.mode == "lsb" else spec.f_hi) * 1e-3
+        self.vol_scale = float(7.0874 * abs(f_cut_khz) ** -1.232)
+
+        # the designs the plain stages use, on the chain's device
+        self.tensors = {
+            k: torch.from_numpy(getattr(self, k)).to(self.device)
+            for k in ("h1", "h2", "hi1", "hi2", "mask", "os_W", "os_F",
+                      "os_W2", "os_mask_sq")}
+
+        if spec.use_kernels:
+            from t41x_torch.kernels.frontend import FusedFrontEnd
+            from t41x_torch.kernels.interp import FusedInterp
+            self.fused_fe = FusedFrontEnd(
+                self.h1, self.h2, self.dc_b[0], self.dc_a[0],
+                spec.sample_rate,
+                zoom=0 if spec.spectrum_zoom == 0 else None)
+            self.fused_interp = (FusedInterp(self.hi1, self.hi2)
+                                 if spec.interpolate_out else None)
+        else:
+            self.fused_fe = None
+            self.fused_interp = None
+
+    # ------------------------------------------------------------------
+    def init_state(self, channels: tuple[int, ...] = (),
+                   device=None) -> RxState:
+        dev = self.device if device is None else torch.device(device)
+        f32, c64 = torch.float32, torch.complex64
+
+        def z(shape=(), dtype=f32):
+            return torch.zeros(channels + shape, dtype=dtype, device=dev)
+
+        return RxState(
+            dc_bq=z((2, 1, 2)),
+            nco_phase=z(),
+            dec1=z((len(self.h1) - 1,), c64),
+            dec2=z((len(self.h2) - 1,), c64),
+            osf=osfilter.os_state(channels, self.spec.fft_length, dev),
+            agc=agc_mod.agc_state(self.agc_params, channels, dev),
+            am_bq=iir.biquad_state(channels, stages=2, device=dev),
+            sam=tuple(z() for _ in range(5)),
+            nfm_last=z(dtype=c64),
+            int1=z((len(self.hi1) // C.DF2 - 1,)),
+            int2=z((len(self.hi2) // C.DF1 - 1,)),
+            smeter_avg=z(),
+            nr=(), cw=(), cw_lp=(), notch=(), eq=(),
+            zoom=(z((spectrum_mod.RES,)) if self.spec.spectrum_zoom == 0
+                  else ()),
+        )
+
+    # ------------------------------------------------------------------
+    def block(self, params: ChannelParams, state: RxState, iq):
+        """Process one block.
+
+        iq: (..., BLOCK) complex64 at the RF rate — or, with
+        spec.q15_input, a pair of int16 tensors (i, q) in the
+        reference's ADC q15 format (Process.cpp:102-111).
+        Returns (new_state, outputs: dict of tensors).
+        """
+        x, outputs, fe_upd = self._front(params, state, iq)
+        upd, audio, outputs = self._tail_pre_nr(params, state, x, outputs)
+        upd.update(fe_upd)
+        return self._tail_post_nr(params, state._replace(**upd), audio,
+                                  outputs)
+
+    def _front(self, params, state, iq):
+        """RF-rate front end; returns (x at 24 kHz, outputs, front-end
+        state updates)."""
+        spec = self.spec
+        outputs = {}
+
+        if spec.clip_taps:
+            # ADC clip statistics on the RAW samples, pre-gain
+            # (Codec_gain, Process.cpp:979-1027)
+            if spec.q15_input:
+                i16, q16 = iq
+                mag = torch.maximum(i16.to(torch.int32).abs(),
+                                    q16.to(torch.int32).abs())
+                outputs["adc_half_clip"] = (mag >= 16384).any(dim=-1)
+                outputs["adc_quarter_clip"] = (mag >= 8192).any(dim=-1)
+            else:
+                mag = torch.maximum(iq.real.abs(), iq.imag.abs())
+                outputs["adc_half_clip"] = (mag >= 0.5).any(dim=-1)
+                outputs["adc_quarter_clip"] = (mag >= 0.25).any(dim=-1)
+
+        if self.fused_fe is not None:
+            st4 = (state.dc_bq, state.nco_phase, state.dec1, state.dec2)
+            zoom_state = state.zoom
+            if spec.spectrum_zoom == 0:
+                (dc_bq, nco_phase, dec1, dec2), x, seg = \
+                    self.fused_fe.block(params, st4, iq)
+                zoom_state, outputs["rf_spectrum"] = \
+                    spectrum_mod.zoom1_from_segment(zoom_state, seg)
+            else:
+                (dc_bq, nco_phase, dec1, dec2), x = self.fused_fe.block(
+                    params, st4, iq)
+            return x, outputs, dict(dc_bq=dc_bq, nco_phase=nco_phase,
+                                    dec1=dec1, dec2=dec2, zoom=zoom_state)
+
+        if spec.q15_input:
+            i16, q16 = iq
+            iq = torch.complex(i16.to(torch.float32),
+                               q16.to(torch.float32)) * (1.0 / 32768.0)
+
+        # --- front end: RF gain, DC block, IQ correction ----------------
+        g = (10.0 ** (params.rf_gain_db / 20.0) * params.band_gain
+             ).to(torch.float32)
+        x = iq * g[..., None]
+        dc_bq, xi = self.dc_op.apply(
+            state.dc_bq, torch.stack([x.real, x.imag], dim=-2))
+        x = iq_correction(xi[..., 0, :], xi[..., 1, :], params.iq_amp,
+                          params.iq_phase)
+
+        # --- RF spectrum tap: zoom x1 on the un-shifted data ------------
+        zoom_state = state.zoom
+        if spec.spectrum_zoom == 0:
+            zoom_state, outputs["rf_spectrum"] = \
+                spectrum_mod.zoom1_spectrum(zoom_state, x)
+
+        # --- frequency translation, decimation x4 then x2 ---------------
+        x = nco.fs4_shift(x)
+        nco_phase, x = nco.nco_mix(state.nco_phase, x, params.nco_freq,
+                                   spec.sample_rate)
+        dec1, x = fir.fir_decimate(state.dec1, x, self.tensors["h1"], C.DF1)
+        dec2, x = fir.fir_decimate(state.dec2, x, self.tensors["h2"], C.DF2)
+        return x, outputs, dict(dc_bq=dc_bq, nco_phase=nco_phase,
+                                dec1=dec1, dec2=dec2, zoom=zoom_state)
+
+    def _tail_pre_nr(self, params, state, x, outputs):
+        """Band-pass, AGC and SSB demod, with the audio-spectrum and
+        S-meter taps.  Returns (state-field updates, audio, outputs)."""
+        spec = self.spec
+        t = self.tensors
+        smeter_avg = state.smeter_avg
+        spectrum = None
+        x = x * self.vol_scale
+        if spec.use_matmul_osfilter:
+            if spec.spectrum_taps:
+                osf, y, spectrum = osfilter.os_filter_matmul_spectrum(
+                    state.osf, x, t["os_F"], t["os_W2"], t["os_mask_sq"])
+            elif spec.use_kernels:
+                from t41x_torch.kernels.os_filter import \
+                    os_filter_matmul_kernel
+                osf, y = os_filter_matmul_kernel(state.osf, x, t["os_W"])
+            else:
+                osf, y = osfilter.os_filter_matmul(state.osf, x, t["os_W"])
+        else:
+            osf, y, spectrum = osfilter.os_filter(state.osf, x, t["mask"],
+                                                  return_spectrum=True)
+        agc_state, y = agc_mod.agc_apply(self.agc_params, state.agc, y,
+                                         use_kernels=spec.use_kernels)
+        audio = y.real
+
+        if spectrum is not None and spec.spectrum_taps:
+            outputs["audio_spectrum"] = spectrum
+            smeter_avg = 0.5 * spectrum.amax(dim=-1) + 0.5 * smeter_avg
+            outputs["smeter_avg"] = smeter_avg
+        return (dict(osf=osf, agc=agc_state, smeter_avg=smeter_avg), audio,
+                outputs)
+
+    def _tail_post_nr(self, params, state, audio, outputs):
+        """Interpolation back to 192 kHz and volume.  `state` carries
+        current values for every field; only int1/int2 are replaced."""
+        spec = self.spec
+        outputs["audio_24k"] = audio
+        int1, int2 = state.int1, state.int2
+        vol = volume_to_amplification(params.volume)
+        if spec.interpolate_out and self.fused_interp is not None:
+            int1, int2, outputs["audio"] = self.fused_interp.apply(
+                audio, int1, int2, C.DF * vol)
+        elif spec.interpolate_out:
+            t = self.tensors
+            int1, a = fir.fir_interpolate(int1, audio, t["hi1"], C.DF2)
+            int2, a = fir.fir_interpolate(int2, a, t["hi2"], C.DF1)
+            outputs["audio"] = a * (C.DF * vol[..., None])
+        else:
+            outputs["audio"] = audio * vol[..., None]
+        return state._replace(int1=int1, int2=int2), outputs
+
+    # ------------------------------------------------------------------
+    def run(self, iq, params: ChannelParams | None = None):
+        """Stream the chain over a whole capture.
+
+        iq: (..., n_blocks*BLOCK) complex (NumPy or tensor); leading
+        dims are channels.  Returns a dict of streamed outputs, time
+        axis last.
+        """
+        iq = torch.as_tensor(iq, device=self.device)
+        ch = tuple(iq.shape[:-1])
+        n_blocks = iq.shape[-1] // C.BLOCK_SIZE
+        blocks = iq[..., : n_blocks * C.BLOCK_SIZE].reshape(
+            ch + (n_blocks, C.BLOCK_SIZE)).movedim(-2, 0)
+        if params is None:
+            params = default_params(ch, device=self.device)
+        st = self.init_state(ch)
+        outs = []
+        for b in range(n_blocks):
+            st, out = self.block(params, st, blocks[b].contiguous())
+            outs.append(out)
+
+        def join(vals):
+            # (...ch, N) per block -> (...ch, n_blocks*N) sample streams;
+            # (...ch) per block    -> (...ch, n_blocks) per-block series
+            if vals[0].ndim == len(ch) + 1:
+                return torch.cat(vals, dim=-1)
+            return torch.stack(vals, dim=-1)
+
+        return {k: join([o[k] for o in outs]) for k in outs[0]}
+
+
+def iq_correction(i_part: torch.Tensor, q_part: torch.Tensor,
+                  amp: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    """Manual IQ amplitude + phase correction (Process.cpp:163-175,
+    Utility.cpp:178-187): scale I, then mix factor*Q into I (positive
+    factor) or factor*I into Q (negative factor).
+
+    i_part/q_part: (..., N);  amp/phase: (...,).  Returns complex64.
+    """
+    amp = amp[..., None]
+    ph = phase[..., None]
+    i_c = i_part * amp
+    pos = ph >= 0
+    i_c = torch.where(pos, i_c + ph * q_part, i_c)
+    q_c = torch.where(pos, q_part, q_part + ph * i_c)
+    return torch.complex(i_c, q_c)
+
+
+def volume_to_amplification(volume: torch.Tensor) -> torch.Tensor:
+    """0..100 -> amplitude, x^5 taper (reference `VolumeToAmplification`,
+    `Process.cpp:955-967`)."""
+    x = volume / 100.0
+    return 5.0 * x ** 5

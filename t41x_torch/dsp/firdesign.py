@@ -1,0 +1,115 @@
+"""Design-time FIR/IIR designers (NumPy), the part the SSB chain uses.
+
+A copy of the matching functions of `t41x.dsp.firdesign`, so the port
+never imports JAX; `tests/test_torch_design.py` pins every designed
+coefficient equal to `t41x`'s.  They re-express the reference's
+designers:
+  * Kaiser windowed-sinc low-pass  (tmr4/T41_SDR `FIR.cpp:908-980`)
+  * complex band-pass prototype for the overlap-save mask (`FIR.cpp:1008-1065`)
+  * RBJ biquad coefficients (`FIR.cpp:1076-1116`)
+  * frequency-domain filter mask (`Filter.cpp:260-284`)
+  * interpolation prototypes (`Filter.cpp:396-438`)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from t41x_torch import constants as C
+from t41x_torch.utils import windows as W
+
+
+def _kaiser_w(x: np.ndarray, beta: float) -> np.ndarray:
+    return W.izero(beta * np.sqrt(np.clip(1.0 - x * x, 0.0, None))) / W.izero(beta)
+
+
+def _msinc(m: np.ndarray, fc: float) -> np.ndarray:
+    """sin(pi/2 * m * fc) / (pi/2 * m * fc), =1 at m=0
+    (reference `Utility.cpp:197-203`)."""
+    x = m * (np.pi / 2.0) * fc
+    out = np.ones_like(x)
+    nz = m != 0
+    out[nz] = np.sin(x[nz]) / (fc * m[nz] * (np.pi / 2.0))
+    return out
+
+
+def fir_kaiser(num_taps: int, fc: float, astop_db: float,
+               fs: float = C.SAMPLE_RATE) -> np.ndarray:
+    """Kaiser windowed-sinc low-pass FIR, matching the reference
+    designer's conventions (`CalcFIRCoeffs`, `FIR.cpp:908-980`).
+    Returns float64 taps of length num_taps."""
+    beta = W.kaiser_beta(astop_db)
+    fcf, nc = 2.0 * (fc / fs), num_taps
+    ii = np.arange(-nc, nc, 2, dtype=np.float64)
+    h = fcf * _msinc(ii, fcf) * _kaiser_w(ii / nc, beta)
+    if len(h) >= num_taps:
+        return h[:num_taps]
+    return np.pad(h, (0, num_taps - len(h)))
+
+
+def complex_bandpass(num_taps: int, f_lo: float, f_hi: float, fs: float,
+                     window: str = "blackman_harris4") -> np.ndarray:
+    """Complex band-pass FIR: windowed-sinc LP prototype of width
+    (f_hi-f_lo)/2, shifted in frequency by (f_hi+f_lo)/2
+    (reference `CalcCplxFIRCoeffs`, `FIR.cpp:1008-1065`).
+
+    Cutoffs may be negative (LSB filters).  Returns complex128 taps.
+    """
+    n_fl = f_lo / fs
+    n_fh = f_hi / fs
+    n_fc = (n_fh - n_fl) / 2.0  # prototype LP cutoff
+    n_fs = np.pi * (n_fh + n_fl)  # frequency-shift phase slope
+    center = 0.5 * (num_taps - 1)
+
+    i = np.arange(num_taps, dtype=np.float64)
+    x = i - center
+    w = W.WINDOWS[window](num_taps)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        z = np.sin(2.0 * np.pi * x * n_fc) / (np.pi * x) * w
+    z[np.abs(x) < 0.01] = 2.0 * n_fc  # sinc singularity at center tap
+    return z * np.exp(1j * n_fs * x)
+
+
+def os_filter_mask(taps: np.ndarray, fft_length: int = C.FFT_LENGTH) -> np.ndarray:
+    """Frequency-domain mask for overlap-save fast convolution: zero-pad the
+    (complex) band-pass taps to fft_length and FFT
+    (reference `InitFilterMask`, `Filter.cpp:260-284`).
+    """
+    assert len(taps) <= fft_length
+    buf = np.zeros(fft_length, dtype=np.complex128)
+    buf[: len(taps)] = taps
+    return np.fft.fft(buf)
+
+
+def bandpass_mask(f_lo: float, f_hi: float, fs: float = C.AUDIO_RATE,
+                  fft_length: int = C.FFT_LENGTH,
+                  window: str = "blackman_harris4") -> np.ndarray:
+    """Overlap-save mask for a variable audio band-pass.  m_NumTaps =
+    fft_length/2 + 1 (reference `Filter.cpp:18`)."""
+    taps = complex_bandpass(fft_length // 2 + 1, f_lo, f_hi, fs, window)
+    return os_filter_mask(taps, fft_length)
+
+
+def dc_block_biquad():
+    """The RX DC-removal high-pass butterworth biquad (reference table
+    `HP_DC_Filter_Coeffs2`, `FIR.cpp:87-91`, applied `Process.cpp:127-128`):
+    a ~10 Hz 2nd-order butterworth HP at 192 kHz, as the RBJ cookbook
+    high-pass (`SetIIRCoeffs`, `FIR.cpp:1076-1116`).  Returns (b, a) with
+    a = [1, a1, a2]."""
+    f0, q, fs = 10.0, 1.0 / np.sqrt(2.0), C.SAMPLE_RATE
+    w0 = 2.0 * np.pi * f0 / fs
+    sw, cw = np.sin(w0), np.cos(w0)
+    alpha = sw / (2.0 * q)
+    a0 = 1.0 + alpha
+    b = np.array([(1 + cw) / 2, -(1 + cw), (1 + cw) / 2]) / a0
+    a = np.array([1.0, -2 * cw / a0, (1 - alpha) / a0])
+    return b, a
+
+
+def interpolation_prototypes(lp_hz: float | None = None):
+    """LP prototypes for the x2 and x4 interpolators back to 192 kHz
+    (reference `Filter.cpp:415-416`, `T41_SDR.ino:595-616`)."""
+    lp = C.N_DESIRED_BW * 1000.0 if lp_hz is None else min(lp_hz, 10_000.0)
+    h1 = fir_kaiser(C.INT1_TAPS, lp, C.N_ATT, fs=C.SAMPLE_RATE / C.DF1)
+    h2 = fir_kaiser(C.INT2_TAPS, lp, C.N_ATT, fs=C.SAMPLE_RATE)
+    return h1, h2

@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Every `t41x_torch/csrc/*.cu` is compiled by `nvcc` for Hopper
+(`sm_90a`) into one shared library with a plain C interface, loaded
+with `ctypes`.  The build runs at the first CUDA use, never at import
+(the CPU tests import every module on machines without `nvcc`), and
+lands in `t41x_torch/build/` under a name keyed by the sources and the
+flags, so a changed source rebuilds.  No `--use_fast_math`: the NCO
+`sincosf` and the AGC `log10f` need full accuracy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+         "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+build_seconds = None  # wall time of the last build or load, for reports
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
+                           "PATH to build the t41x_torch CUDA kernels")
+    return found
+
+
+def library(verbose: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library, built on first call.  `verbose` adds
+    `-Xptxas -v` to a fresh build and prints what the compiler says
+    (registers, shared memory, spills per kernel)."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    t0 = time.perf_counter()
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    key = hashlib.sha256()
+    for f in sources:
+        key.update(f.name.encode())
+        key.update(f.read_bytes())
+    key.update(" ".join(FLAGS).encode())
+    out = BUILD_DIR / f"libt41x_kernels_{key.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), *map(str, sources)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        if verbose:
+            print(res.stdout + res.stderr)
+        os.replace(tmp, out)
+    _lib = ctypes.CDLL(str(out))
+    build_seconds = time.perf_counter() - t0
+    return _lib
+
+
+# argument types of the C entry points: every pointer and the stream
+# as c_void_p (a bare Python int would be passed as a 32-bit int)
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def launch(name: str, argtypes: list, *args) -> None:
+    """Call the C entry point `name`, which launches its kernel on the
+    given stream and returns `cudaGetLastError()`; raise if that is not
+    0 (a refused launch never runs, and a later synchronize would not
+    report it)."""
+    fn = getattr(library(), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of tensor `t`'s device, as an int."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cuda_input(name: str, t, dtype, shape: tuple, device):
+    """`t` as the kernel takes it: raise unless it is a `dtype` tensor of
+    `shape` on `device`; a strided view (a slice of a carried history,
+    the real part of a complex block) is copied to a contiguous one."""
+    if t.device != device or t.dtype != dtype or \
+            tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected a {dtype} tensor of shape {tuple(shape)} on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()

@@ -1,0 +1,38 @@
+"""The North-star parity measures, one definition for the tests and
+`chip_smoke.py` (formulas of `bench.py`'s on-chip parity check).
+
+* `snr_db` — audio SNR of `got` against `ref` in dB; the bound is 55 dB.
+* `spectrum_err_db` — the largest displayed-spectrum error in dB within
+  the panadapter's ~60 dB range (bins below peak - 60 dB clip to the
+  display floor); the bound is 0.5 dB, below the display's ~1-2 dB per
+  pixel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+AUDIO_SNR_MIN_DB = 55.0
+SPECTRUM_ERR_MAX_DB = 0.5
+
+
+def _np(a) -> np.ndarray:
+    if hasattr(a, "detach"):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def snr_db(ref, got) -> float:
+    r = _np(ref).astype(np.complex128)
+    g = _np(got).astype(np.complex128)
+    err = np.mean(np.abs(r - g) ** 2)
+    sig = np.mean(np.abs(r) ** 2)
+    return float("inf") if err == 0.0 else float(10.0 * np.log10(sig / err))
+
+
+def spectrum_err_db(ref, got) -> float:
+    r = _np(ref).astype(np.float64)
+    g = _np(got).astype(np.float64)
+    fl = max(r.max(), g.max()) * 1e-6
+    return float(np.max(np.abs(10 * np.log10(np.maximum(g, fl))
+                               - 10 * np.log10(np.maximum(r, fl)))))

@@ -1,0 +1,147 @@
+"""t41x_torch design-time code: every designed coefficient, operator and
+constant equals t41x's bit for bit, and the port never imports JAX."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from t41x import constants as JC
+from t41x.chain import ChainSpec as JSpec, RxChain as JChain
+from t41x.dsp import agc as jagc, firdesign as jfd, iir as jiir
+from t41x.kernels.frontend_pallas import FusedFrontEnd as JFront
+from t41x.kernels.interp_pallas import FusedInterp as JInterp
+from t41x.utils import windows as jw
+from t41x_torch import constants as TC
+from t41x_torch.chain import ChainSpec, RxChain
+from t41x_torch.dsp import agc as tagc, firdesign as tfd, iir as tiir
+from t41x_torch.kernels.frontend import FusedFrontEnd as TFront
+from t41x_torch.kernels.interp import FusedInterp as TInterp
+from t41x_torch.utils import windows as tw
+
+torch.set_num_threads(1)
+
+SPECS = [dict(mode="usb"),
+         dict(mode="lsb", f_lo=-2800.0, f_hi=-300.0),
+         dict(mode="usb", f_lo=100.0, f_hi=12000.0, agc_mode=4,
+              agc_thresh_db=35.0)]
+EQ = np.testing.assert_array_equal
+
+
+@pytest.mark.parametrize("kw", SPECS)
+def test_chain_designs_equal(kw):
+    j, t = JChain(JSpec(**kw)), RxChain(ChainSpec(**kw))
+    for name in ("h1", "h2", "hi1", "hi2", "mask", "os_W", "os_F", "os_W2",
+                 "os_mask_sq", "dc_b", "dc_a"):
+        a, b = getattr(t, name), getattr(j, name)
+        assert a.dtype == b.dtype, name
+        EQ(a, b, err_msg=name)
+    for f in ("R", "L", "AK", "G", "b0"):
+        EQ(getattr(t.dc_op, f), getattr(j.dc_op, f), err_msg=f)
+    assert t.agc_params == j.agc_params
+    assert t.vol_scale == j.vol_scale
+
+
+def test_constants_equal():
+    names = [n for n in dir(JC) if n.isupper()]
+    assert names and names == [n for n in dir(TC) if n.isupper()]
+    for n in names:
+        assert getattr(TC, n) == getattr(JC, n), n
+    assert (TC.dec1_taps(), TC.dec2_taps()) == (JC.dec1_taps(),
+                                                JC.dec2_taps())
+
+
+@pytest.mark.parametrize("n", [7, 64, 257])
+def test_windows_equal(n):
+    for name, fn in jw.WINDOWS.items():
+        EQ(tw.WINDOWS[name](n), fn(n), err_msg=name)
+    for fn in ("sqrt_hann_periodic", "blackman_ft8"):
+        EQ(getattr(tw, fn)(n), getattr(jw, fn)(n), err_msg=fn)
+    for att in (15.0, 40.0, 60.0, 90.0):
+        assert tw.kaiser_beta(att) == jw.kaiser_beta(att)
+        EQ(tw.kaiser(n, tw.kaiser_beta(att)), jw.kaiser(n, jw.kaiser_beta(att)))
+    x = np.linspace(0.0, 30.0, n)
+    EQ(tw.izero(x), jw.izero(x))
+
+
+def test_firdesign_equal():
+    for taps, fc, att, fs in ((28, 3000.0, 90.0, 192000.0),
+                              (46, 9000.0, 90.0, 48000.0),
+                              (4, 6000.0, 60.0, 192000.0)):
+        EQ(tfd.fir_kaiser(taps, fc, att, fs=fs),
+           jfd.fir_kaiser(taps, fc, att, "lowpass", fs=fs))
+    for lp in (None, 2500.0, 12000.0):
+        for a, b in zip(tfd.interpolation_prototypes(lp),
+                        jfd.interpolation_prototypes(lp)):
+            EQ(a, b)
+    for lo, hi in ((200.0, 3000.0), (-3000.0, -200.0), (-5000.0, 5000.0)):
+        EQ(tfd.bandpass_mask(lo, hi), jfd.bandpass_mask(lo, hi))
+    for a, b in zip(tfd.dc_block_biquad(), jfd.dc_block_biquad()):
+        EQ(a, b)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])
+def test_agc_params_equal(mode):
+    for thresh in (10.0, 20.0, 50.0):
+        for rate in (24000.0, 48000.0):
+            assert (tagc.agc_params(mode, thresh, rate)
+                    == jagc.agc_params(mode, thresh, rate))
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_biquad_operators_equal(chunk):
+    dc_b, dc_a = jfd.dc_block_biquad()
+    lp_b, lp_a = jfd.biquad_rbj(2500.0, 1.3, 24000.0, "lowpass")
+    real_b, real_a = [1.0, 0.3, 0.0], [1.0, -0.9, 0.2]  # distinct real poles
+    rep_b, rep_a = [1.0, 0.0, 0.0], [1.0, -1.0, 0.25]  # repeated pole
+    for b, a in (([dc_b], [dc_a]), ([lp_b, real_b], [lp_a, real_a]),
+                 ([rep_b], [rep_a])):
+        t, j = tiir.BiquadChunked(b, a, chunk), jiir.BiquadChunked(b, a, chunk)
+        for f in ("R", "L", "AK", "G", "b0"):
+            EQ(getattr(t, f), getattr(j, f), err_msg=f)
+        for s in range(len(b)):
+            for x, y in zip(tiir.stage_normal_form(b[s], a[s]),
+                            jiir.stage_normal_form(b[s], a[s])):
+                EQ(x, y)
+
+
+def test_kernel_operators_equal():
+    chain = JChain(JSpec())
+    jf = JFront(chain.h1, chain.h2, chain.dc_b[0], chain.dc_a[0])
+    tf = TFront(chain.h1, chain.h2, chain.dc_b[0], chain.dc_a[0])
+    k = tf._on(torch.device("cpu"))
+    EQ(k["Lt"].numpy(), jf.Lt)
+    EQ(k["R"].numpy().T, jf.Rt)
+    EQ(k["G"].numpy(), jf.G)
+    EQ(k["AK"].numpy().T, jf.AKt)
+    EQ(k["h1r"].numpy(), jf.h1_rev)
+    EQ(k["h2r"].numpy(), jf.h2_rev)
+    assert float(tf.dc_op.b0[0]) == jf.b0
+    ji, ti = JInterp(chain.hi1, chain.hi2), TInterp(chain.hi1, chain.hi2)
+    EQ(ti.hp1, ji.hp1)
+    EQ(ti.hp2, ji.hp2)
+
+
+def test_port_never_imports_jax():
+    """Import every t41x_torch module in a fresh interpreter in which
+    `import jax` fails; none may need JAX or the JAX package."""
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "import t41x_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(t41x_torch.__path__,"
+        " 't41x_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 't41x' or "
+        "m.startswith(('t41x.', 'jax.', 'jaxlib'))]\n"
+        "assert not bad, bad\n"
+        "assert len(mods) >= 15, mods\n"
+        "print(len(mods))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr

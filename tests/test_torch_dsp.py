@@ -1,0 +1,202 @@
+"""t41x_torch plain stages vs their t41x twins: the same numpy-seeded
+blocks streamed through both with state carried, at the tolerances of
+the matching t41x tests (tests/test_kernels.py, test_agc_oracle.py,
+test_pallas_kernels.py, test_frontend_fused.py)."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from t41x.chain import rx as jrx
+from t41x.dsp import agc as jagc, fir as jfir, firdesign as jfd, iir as jiir
+from t41x.dsp import nco as jnco, osfilter as josf, spectrum as jspec
+from t41x_torch.chain import rx as trx
+from t41x_torch.dsp import agc as tagc, fir as tfir, iir as tiir
+from t41x_torch.dsp import nco as tnco, osfilter as tosf, spectrum as tspec
+
+torch.set_num_threads(1)
+
+CH, BLOCKS = 5, 3
+T = torch.from_numpy
+
+
+def _cx(rng, *shape, scale=1.0):
+    return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            * scale).astype(np.complex64)
+
+
+def _close(got, ref, rtol, atol, msg=""):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=rtol, atol=atol,
+                               err_msg=msg)
+
+
+@pytest.mark.parametrize("factor,taps,fs", [(4, 28, 192000.0),
+                                            (2, 46, 48000.0)])
+def test_fir_decimate_streams_like_t41x(factor, taps, fs):
+    rng = np.random.default_rng(1)
+    h = jfd.fir_kaiser(taps, 3000.0, 90.0, "lowpass", fs=fs).astype(
+        np.float32)
+    js = jfir.fir_state(taps, (CH,), np.complex64)
+    ts = T(js.copy())
+    for _ in range(BLOCKS):
+        x = _cx(rng, CH, 512)
+        js, jy = jfir.fir_decimate(js, jnp.asarray(x), jnp.asarray(h),
+                                   factor)
+        ts, ty = tfir.fir_decimate(ts, T(x), T(h), factor)
+        _close(ty, jy, 1e-5, 1e-6)
+        _close(ts, js, 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("factor,taps", [(2, 48), (4, 32)])
+def test_fir_interpolate_streams_like_t41x(factor, taps):
+    rng = np.random.default_rng(2)
+    h = jfd.fir_kaiser(taps, 3000.0, 90.0, "lowpass",
+                       fs=24000.0 * factor).astype(np.float32)
+    js = np.zeros((CH, taps // factor - 1), np.float32)
+    ts = T(js.copy())
+    for _ in range(BLOCKS):
+        x = rng.standard_normal((CH, 256)).astype(np.float32)
+        js, jy = jfir.fir_interpolate(js, jnp.asarray(x), jnp.asarray(h),
+                                      factor)
+        ts, ty = tfir.fir_interpolate(ts, T(x), T(h), factor)
+        _close(ty, jy, 1e-5, 1e-6)
+        _close(ts, js, 1e-5, 1e-6)
+
+
+def test_fs4_and_nco_stream_like_t41x():
+    rng = np.random.default_rng(3)
+    freq = np.linspace(-700.0, 900.0, CH).astype(np.float32)
+    jph = np.zeros(CH, np.float32)
+    tph = T(jph.copy())
+    for _ in range(BLOCKS):
+        x = _cx(rng, CH, 2048)
+        jx = jnco.fs4_shift(jnp.asarray(x))
+        tx = tnco.fs4_shift(T(x))
+        _close(tx, jx, 1e-6, 1e-6)
+        jph, jy = jnco.nco_mix(jph, jx, jnp.asarray(freq))
+        tph, ty = tnco.nco_mix(tph, tx, T(freq))
+        _close(ty, jy, 1e-3, 1e-4)
+        _close(tph, jph, 1e-5, 1e-6)
+
+
+def test_biquad_chunked_streams_like_t41x():
+    rng = np.random.default_rng(4)
+    b, a = jfd.dc_block_biquad()
+    lp_b, lp_a = jfd.biquad_rbj(2500.0, 1.3, 24000.0, "lowpass")
+    bs, as_ = np.array([b, lp_b]), np.array([a, lp_a])
+    jop, top = jiir.BiquadChunked(bs, as_, 128), tiir.BiquadChunked(
+        bs, as_, 128)
+    js = np.zeros((CH, 2, 2, 2), np.float32)
+    ts = T(js.copy())
+    for _ in range(BLOCKS):
+        x = (rng.standard_normal((CH, 2, 2048)) + 0.3).astype(np.float32)
+        js, jy = jop.apply(js, jnp.asarray(x))
+        ts, ty = top.apply(ts, T(x))
+        _close(ty, jy, 1e-4, 1e-5)
+        _close(ts, js, 2e-3, 5e-4)
+
+
+def test_os_filters_stream_like_t41x():
+    rng = np.random.default_rng(5)
+    mask = jfd.bandpass_mask(200.0, 3000.0)
+    W = josf.os_matmul_operator(mask)
+    F, W2, msq = josf.os_spectrum_operators(mask)
+    m64 = mask.astype(np.complex64)
+    js = [josf.os_state((CH,))] * 3
+    ts = [T(s.copy()) for s in js]
+    for _ in range(BLOCKS):
+        x = _cx(rng, CH, 256, scale=0.3)
+        jx, tx = jnp.asarray(x), T(x)
+        j0 = josf.os_filter(js[0], jx, jnp.asarray(m64), return_spectrum=True)
+        t0 = tosf.os_filter(ts[0], tx, T(m64), return_spectrum=True)
+        j1 = josf.os_filter_matmul(js[1], jx, jnp.asarray(W))
+        t1 = tosf.os_filter_matmul(ts[1], tx, T(W))
+        j2 = josf.os_filter_matmul_spectrum(js[2], jx, jnp.asarray(F),
+                                            jnp.asarray(W2), jnp.asarray(msq))
+        t2 = tosf.os_filter_matmul_spectrum(ts[2], tx, T(F), T(W2), T(msq))
+        for jo, to in ((j0, t0), (j1, t1), (j2, t2)):
+            _close(to[1], jo[1], 2e-3, 2e-4)
+            _close(to[0], jo[0], 0.0, 0.0)
+            if len(jo) == 3:
+                ref = np.asarray(jo[2])
+                _close(to[2], ref, 2e-4, 2e-3 * float(ref.max()))
+        js = [j0[0], j1[0], j2[0]]
+        ts = [t0[0], t1[0], t2[0]]
+
+
+def test_sliding_window_max_exact():
+    rng = np.random.default_rng(6)
+    a = rng.random((CH, 352)).astype(np.float32)
+    for width in (1, 5, 96):
+        np.testing.assert_array_equal(
+            tagc._sliding_window_max(T(a), width).numpy(),
+            np.asarray(jagc._sliding_window_max(jnp.asarray(a), width)))
+
+
+def test_agc_step_branch_for_branch():
+    """Every (state, decay_type, hang counter, attack) combination."""
+    rng = np.random.default_rng(7)
+    p = jagc.agc_params(2)
+    n = 4000
+    volts = rng.uniform(1e-3, 1.0, n).astype(np.float32)
+    carry = (volts,
+             (volts * rng.uniform(0.5, 1.5, n)).astype(np.float32),
+             rng.uniform(0.0, 0.5, n).astype(np.float32),
+             rng.uniform(0.0, 0.5, n).astype(np.float32),
+             rng.integers(0, 3, n).astype(np.int32),
+             rng.integers(0, 2, n).astype(np.int32),
+             rng.integers(0, 5, n).astype(np.int32))
+    rm = (volts * rng.uniform(0.5, 1.5, n)).astype(np.float32)
+    ao = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    jout = jagc.agc_step(p, tuple(map(jnp.asarray, carry)),
+                         jnp.asarray(rm), jnp.asarray(ao))
+    tout = tagc.agc_step(p, tuple(map(T, carry)), T(rm), T(ao))
+    for i, (t, j) in enumerate(zip(tout, jout)):
+        assert t.dtype == (torch.int32 if i >= 4 else torch.float32)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=i)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])
+def test_agc_apply_streams_like_t41x(mode):
+    rng = np.random.default_rng(8 + mode)
+    p = jagc.agc_params(mode)
+    japply = jax.jit(functools.partial(jagc.agc_apply, p))
+    js = jagc.agc_state(p, (CH,))
+    ts = tagc.AGCState(*map(lambda a: T(a.copy()), js))
+    for b in range(BLOCKS):  # levels that move the gain through its states
+        x = _cx(rng, CH, 256, scale=(0.02, 0.5, 0.005)[b])
+        js, jy = japply(js, jnp.asarray(x))
+        ts, ty = tagc.agc_apply(p, ts, T(x))
+        _close(ty, jy, 1e-6, 1e-7)
+        for f in ts._fields:
+            _close(getattr(ts, f), getattr(js, f), 1e-6, 1e-7, f)
+
+
+def test_zoom1_spectrum_streams_like_t41x():
+    rng = np.random.default_rng(9)
+    js = np.zeros((CH, jspec.RES), np.float32)
+    ts = T(js.copy())
+    for _ in range(BLOCKS):
+        x = _cx(rng, CH, 2048, scale=0.3)
+        js, jp = jspec.zoom1_spectrum(js, jnp.asarray(x))
+        ts, tp = tspec.zoom1_spectrum(ts, T(x))
+        ref = np.asarray(jp)
+        _close(tp, ref, 2e-4, 2e-3 * float(ref.max()))
+    np.testing.assert_array_equal(tspec._hann(512), jspec._hann(512))
+
+
+def test_iq_correction_and_volume_like_t41x():
+    rng = np.random.default_rng(10)
+    i, q = rng.standard_normal((2, CH, 64)).astype(np.float32)
+    amp = np.linspace(0.97, 1.03, CH).astype(np.float32)
+    ph = np.linspace(-0.02, 0.02, CH).astype(np.float32)
+    _close(trx.iq_correction(T(i), T(q), T(amp), T(ph)),
+           jrx.iq_correction(i, q, amp, ph), 1e-6, 1e-7)
+    vol = np.linspace(0.0, 100.0, 11).astype(np.float32)
+    _close(trx.volume_to_amplification(T(vol)),
+           jrx.volume_to_amplification(jnp.asarray(vol)), 1e-6, 1e-7)
