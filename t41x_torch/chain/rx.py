@@ -1,24 +1,26 @@
-"""The receive chain in torch: port of `t41x.chain.rx` for the SSB slice.
+"""The receive chain in torch: port of `t41x.chain.rx`.
 
 One block of the reference's per-block hot path (`ProcessIQData`,
 tmr4/T41_SDR `Process.cpp:70-944`):
 
     q15->f32, RF gain, DC block, IQ correction, zoom-x1 panadapter tap,
     Fs/4 shift, NCO mix, x4 + x2 decimation, overlap-save band-pass
-    (+ audio-spectrum / S-meter tap), AGC, USB/LSB demod, x2 + x4
-    interpolation, volume
+    (+ audio-spectrum / S-meter tap), AGC, demod (SSB/AM/SAM/NFM), noise
+    reduction, automatic notch, x2 + x4 interpolation, volume
 
 as `block(params, state, iq) -> (state, outputs)` with every per-channel
 state carried explicitly (`RxState`, the same fields and layouts as
 `t41x`'s, so `t41x_torch.utils.convert` moves a stream between the two
 mid-way) and channels on the leading axes.  `ChainSpec.use_kernels`
-routes the front end, AGC, interpolation and the display-free OS
-filter through the hand-written CUDA kernels of `t41x_torch.kernels`
-(their plain torch versions on CPU tensors).
+routes the front end, AGC, SAM PLL, Kim NR gains, LMS/notch,
+interpolation and the display-free OS filter through the hand-written
+CUDA kernels of `t41x_torch.kernels` (their plain torch versions on CPU
+tensors).
 
-Ported: modes usb/lsb, `spectrum_zoom` -1 or 0, q15 ingest, clip taps,
-both `spectrum_taps` values.  Every other spec option raises
-`NotImplementedError` naming its ROADMAP.md item.
+Ported: modes usb/lsb/ft8/am/sam/nfm/psk31, `nr_mode` 0-3, `notch_on`,
+`spectrum_zoom` -1 or 0, q15 ingest, clip taps, both `spectrum_taps`
+values.  Every other spec option raises `NotImplementedError` naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -30,17 +32,19 @@ import numpy as np
 import torch
 
 from t41x_torch import constants as C
+from t41x_torch.demod import am as am_mod, nfm as nfm_mod, sam as sam_mod
 from t41x_torch.dsp import agc as agc_mod
-from t41x_torch.dsp import fir, firdesign as fd, iir, nco, osfilter
+from t41x_torch.dsp import fir, firdesign as fd, iir, nco, nr as nr_mod
+from t41x_torch.dsp import osfilter
 from t41x_torch.dsp import spectrum as spectrum_mod
 
 SSB_FAMILY = ("usb", "lsb", "ft8", "cw")
 MODES = SSB_FAMILY + ("am", "sam", "nfm", "psk31")
 NUM_EQ_BANDS = 14
 
-# spec options outside the slice -> the ROADMAP.md item that ports them
-_NOT_PORTED_MODES = {"am": 9, "sam": 9, "nfm": 9, "cw": 11, "ft8": 15,
-                     "psk31": 15}
+# spec options outside the port so far -> the ROADMAP.md item that ports
+# them
+_NOT_PORTED_MODES = {"cw": 11}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,10 +86,6 @@ def _check_ported(spec: ChainSpec) -> None:
 
     if spec.mode in _NOT_PORTED_MODES:
         no(f"mode {spec.mode!r}", _NOT_PORTED_MODES[spec.mode])
-    if spec.nr_mode != 0:
-        no(f"noise reduction nr_mode={spec.nr_mode}", 10)
-    if spec.notch_on:
-        no("the automatic notch", 11)
     if spec.nb_on:
         no("the noise blanker", 11)
     if spec.eq_on:
@@ -125,16 +125,16 @@ class RxState(NamedTuple):
     dec2: torch.Tensor       # (..., T2-1) complex
     osf: torch.Tensor        # (..., F/2) complex overlap-save history
     agc: agc_mod.AGCState
-    am_bq: torch.Tensor      # (..., 2, 2) AM cascade (not ported)
-    sam: tuple               # 5 x (...,) SAM PLL state (not ported)
-    nfm_last: torch.Tensor   # (...,) complex (not ported)
+    am_bq: torch.Tensor      # (..., 2, 2) AM DC-block + lowpass cascade
+    sam: sam_mod.SAMState
+    nfm_last: torch.Tensor   # (...,) complex
     int1: torch.Tensor       # (..., T/2-1) interpolation histories (real)
     int2: torch.Tensor
     smeter_avg: torch.Tensor  # (...,) audioMaxSquaredAve EMA
-    nr: object
+    nr: object               # NR state for the configured nr_mode (or ())
     cw: object
     cw_lp: object
-    notch: object
+    notch: object            # Xanr notch state (or ())
     eq: object
     zoom: object             # zoom1 EMA (..., 512) with spectrum_zoom=0
 
@@ -148,9 +148,12 @@ class RxChain:
         self.spec = spec
         self.device = torch.device(device)
         lp = min(max(spec.f_hi, -spec.f_lo), 10_000.0)
-        self.h1 = fd.fir_kaiser(C.dec1_taps(), lp, C.N_ATT,
+        # NFM refits the decimators to the demod bandwidth
+        # (Process.cpp:259, SetDecIntFilters(nfmFilterBW))
+        dec_bw = spec.nfm_bw if spec.mode == "nfm" else lp
+        self.h1 = fd.fir_kaiser(C.dec1_taps(), dec_bw, C.N_ATT,
                                 fs=spec.sample_rate).astype(np.float32)
-        self.h2 = fd.fir_kaiser(C.dec2_taps(), lp, C.N_ATT,
+        self.h2 = fd.fir_kaiser(C.dec2_taps(), dec_bw, C.N_ATT,
                                 fs=spec.sample_rate / C.DF1
                                 ).astype(np.float32)
         i1, i2 = fd.interpolation_prototypes(lp)
@@ -170,12 +173,29 @@ class RxChain:
         self.dc_a = np.asarray([a], np.float32)
         self.dc_op = iir.BiquadChunked(self.dc_b, self.dc_a, chunk=128)
 
+        # AM audio lowpass, SetIIRCoeffs(FHiCut, 1.3, fs/DF)
+        # (T41_SDR.ino:563), fused with the one-pole DC removal into one
+        # chunk-parallel 2-stage cascade
+        bb, aa = fd.biquad_rbj(abs(spec.f_hi), 1.3, spec.sample_rate / C.DF,
+                               "lowpass")
+        self.am_b = np.asarray([bb], np.float32)
+        self.am_a = np.asarray([aa], np.float32)
+        self.am_op = iir.BiquadChunked(*am_mod.am_post_cascade(bb, aa),
+                                       chunk=64)
+
         self.agc_params = agc_mod.agc_params(spec.agc_mode,
                                              spec.agc_thresh_db,
                                              spec.sample_rate / C.DF)
+        self.sam_params = sam_mod.sam_params(rate=spec.sample_rate / C.DF)
         # SSB level adjust (Process.cpp:482-492)
         f_cut_khz = (-spec.f_lo if spec.mode == "lsb" else spec.f_hi) * 1e-3
         self.vol_scale = float(7.0874 * abs(f_cut_khz) ** -1.232)
+
+        # post-demod stages
+        self.kim_params = nr_mod.kim_params(spec.f_lo, spec.f_hi)
+        self.spectral_nr_params = nr_mod.spectral_params(spec.f_lo, spec.f_hi)
+        self.xanr_params = nr_mod.XanrParams(notch=False)
+        self.notch_params = nr_mod.XanrParams(notch=True)
 
         # the designs the plain stages use, on the chain's device
         self.tensors = {
@@ -200,6 +220,7 @@ class RxChain:
     def init_state(self, channels: tuple[int, ...] = (),
                    device=None) -> RxState:
         dev = self.device if device is None else torch.device(device)
+        spec = self.spec
         f32, c64 = torch.float32, torch.complex64
 
         def z(shape=(), dtype=f32):
@@ -210,16 +231,23 @@ class RxChain:
             nco_phase=z(),
             dec1=z((len(self.h1) - 1,), c64),
             dec2=z((len(self.h2) - 1,), c64),
-            osf=osfilter.os_state(channels, self.spec.fft_length, dev),
+            osf=osfilter.os_state(channels, spec.fft_length, dev),
             agc=agc_mod.agc_state(self.agc_params, channels, dev),
             am_bq=iir.biquad_state(channels, stages=2, device=dev),
-            sam=tuple(z() for _ in range(5)),
+            sam=sam_mod.sam_state(channels, dev),
             nfm_last=z(dtype=c64),
             int1=z((len(self.hi1) // C.DF2 - 1,)),
             int2=z((len(self.hi2) // C.DF1 - 1,)),
             smeter_avg=z(),
-            nr=(), cw=(), cw_lp=(), notch=(), eq=(),
-            zoom=(z((spectrum_mod.RES,)) if self.spec.spectrum_zoom == 0
+            nr=(nr_mod.kim_state(channels, dev) if spec.nr_mode == 1
+                else nr_mod.spectral_state(channels, dev)
+                if spec.nr_mode == 2
+                else nr_mod.xanr_state(self.xanr_params, channels, dev)
+                if spec.nr_mode == 3 else ()),
+            notch=(nr_mod.xanr_state(self.notch_params, channels, dev)
+                   if spec.notch_on else ()),
+            cw=(), cw_lp=(), eq=(),
+            zoom=(z((spectrum_mod.RES,)) if spec.spectrum_zoom == 0
                   else ()),
         )
 
@@ -232,11 +260,33 @@ class RxChain:
         reference's ADC q15 format (Process.cpp:102-111).
         Returns (new_state, outputs: dict of tensors).
         """
+        state, audio, outputs = self._block_pre_nr(params, state, iq)
+        nr_state, audio = self._apply_nr(state.nr, audio)
+        return self._tail_post_nr(params, state._replace(nr=nr_state),
+                                  audio, outputs)
+
+    def _block_pre_nr(self, params, state, iq):
+        """One block through the front end and the pre-NR tail; returns
+        (state with the pre-NR fields updated, audio, outputs)."""
         x, outputs, fe_upd = self._front(params, state, iq)
         upd, audio, outputs = self._tail_pre_nr(params, state, x, outputs)
         upd.update(fe_upd)
-        return self._tail_post_nr(params, state._replace(**upd), audio,
-                                  outputs)
+        return state._replace(**upd), audio, outputs
+
+    def _apply_nr(self, nr_state, audio):
+        """Per-block noise reduction (Process.cpp:841-858); `block_batch`
+        has the cross-block batched form."""
+        spec = self.spec
+        if spec.nr_mode == 1:
+            return nr_mod.kim_nr(self.kim_params, nr_state, audio,
+                                 use_kernels=spec.use_kernels)
+        if spec.nr_mode == 2:
+            return nr_mod.spectral_nr(self.spectral_nr_params, nr_state,
+                                      audio)
+        if spec.nr_mode == 3:
+            return nr_mod.xanr(self.xanr_params, nr_state, audio,
+                               use_kernels=spec.use_kernels)
+        return nr_state, audio
 
     def _front(self, params, state, iq):
         """RF-rate front end; returns (x at 24 kHz, outputs, front-end
@@ -302,41 +352,70 @@ class RxChain:
                                 dec1=dec1, dec2=dec2, zoom=zoom_state)
 
     def _tail_pre_nr(self, params, state, x, outputs):
-        """Band-pass, AGC and SSB demod, with the audio-spectrum and
-        S-meter taps.  Returns (state-field updates, audio, outputs)."""
+        """Band-pass, AGC and demod, with the audio-spectrum and S-meter
+        taps.  Returns (state-field updates, audio, outputs)."""
         spec = self.spec
-        t = self.tensors
-        smeter_avg = state.smeter_avg
+        upd = {}
         spectrum = None
-        x = x * self.vol_scale
-        if spec.use_matmul_osfilter:
-            if spec.spectrum_taps:
-                osf, y, spectrum = osfilter.os_filter_matmul_spectrum(
-                    state.osf, x, t["os_F"], t["os_W2"], t["os_mask_sq"])
-            elif spec.use_kernels:
-                from t41x_torch.kernels.os_filter import \
-                    os_filter_matmul_kernel
-                osf, y = os_filter_matmul_kernel(state.osf, x, t["os_W"])
-            else:
-                osf, y = osfilter.os_filter_matmul(state.osf, x, t["os_W"])
+        if spec.mode == "psk31":
+            # the decimated I/Q is the product; audio is its real part
+            audio = x.real
+            outputs["iq_baseband"] = x
         else:
-            osf, y, spectrum = osfilter.os_filter(state.osf, x, t["mask"],
-                                                  return_spectrum=True)
-        agc_state, y = agc_mod.agc_apply(self.agc_params, state.agc, y,
-                                         use_kernels=spec.use_kernels)
-        audio = y.real
+            if spec.mode == "nfm":
+                nfm_last, audio = nfm_mod.nfm_demod(state.nfm_last, x)
+                upd["nfm_last"] = nfm_last
+                # post-demod shaping: OS filter + AGC on the real audio
+                # (Process.cpp:765-816)
+                x = audio.to(torch.complex64)
+            else:
+                x = x * self.vol_scale
+            osf, y, spectrum = self._os_filter(state.osf, x)
+            agc_state, y = agc_mod.agc_apply(self.agc_params, state.agc, y,
+                                             use_kernels=spec.use_kernels)
+            upd.update(osf=osf, agc=agc_state)
+            if spec.mode == "am":
+                upd["am_bq"], audio = am_mod.am_demod(state.am_bq, y,
+                                                      self.am_op)
+            elif spec.mode == "sam":
+                upd["sam"], audio, outputs["sam_carrier_hz"] = \
+                    sam_mod.sam_demod(self.sam_params, state.sam, y,
+                                      use_kernels=spec.use_kernels)
+            else:  # SSB family and NFM
+                audio = y.real
 
         if spectrum is not None and spec.spectrum_taps:
             outputs["audio_spectrum"] = spectrum
-            smeter_avg = 0.5 * spectrum.amax(dim=-1) + 0.5 * smeter_avg
+            upd["smeter_avg"] = smeter_avg = (0.5 * spectrum.amax(dim=-1)
+                                              + 0.5 * state.smeter_avg)
             outputs["smeter_avg"] = smeter_avg
-        return (dict(osf=osf, agc=agc_state, smeter_avg=smeter_avg), audio,
-                outputs)
+        return upd, audio, outputs
+
+    def _os_filter(self, osf, x):
+        """The overlap-save band-pass; returns (osf, y, audio spectrum or
+        None)."""
+        spec = self.spec
+        t = self.tensors
+        if not spec.use_matmul_osfilter:
+            return osfilter.os_filter(osf, x, t["mask"], return_spectrum=True)
+        if spec.spectrum_taps:
+            return osfilter.os_filter_matmul_spectrum(
+                osf, x, t["os_F"], t["os_W2"], t["os_mask_sq"])
+        if spec.use_kernels:
+            from t41x_torch.kernels.os_filter import os_filter_matmul_kernel
+            return (*os_filter_matmul_kernel(osf, x, t["os_W"]), None)
+        return (*osfilter.os_filter_matmul(osf, x, t["os_W"]), None)
 
     def _tail_post_nr(self, params, state, audio, outputs):
-        """Interpolation back to 192 kHz and volume.  `state` carries
-        current values for every field; only int1/int2 are replaced."""
+        """Automatic notch, interpolation back to 192 kHz and volume.
+        `state` carries current values for every field; only the post-NR
+        fields are replaced."""
         spec = self.spec
+        notch_state = state.notch
+        if spec.notch_on:  # Process.cpp:862-866
+            notch_state, audio = nr_mod.xanr(self.notch_params, notch_state,
+                                             audio,
+                                             use_kernels=spec.use_kernels)
         outputs["audio_24k"] = audio
         int1, int2 = state.int1, state.int2
         vol = volume_to_amplification(params.volume)
@@ -350,7 +429,37 @@ class RxChain:
             outputs["audio"] = a * (C.DF * vol[..., None])
         else:
             outputs["audio"] = audio * vol[..., None]
-        return state._replace(int1=int1, int2=int2), outputs
+        return state._replace(int1=int1, int2=int2, notch=notch_state), \
+            outputs
+
+    # ------------------------------------------------------------------
+    def block_batch(self, params: ChannelParams, state: RxState, blocks):
+        """Process (B, ..., BLOCK) blocks in one call, with the same result
+        as B calls of `block` (`t41x.chain.rx.RxChain.block_batch`).
+        Spectral NR (nr_mode 2) runs batched across the blocks: the pre-NR
+        tail block by block, one `spectral_nr_batch`, then the post-NR
+        tail block by block.  Every other spec loops `block`.  Returns
+        (state, outputs stacked on a leading (B,) axis)."""
+        if self.spec.nr_mode != 2:
+            outs = []
+            for blk in blocks:
+                state, out = self.block(params, state, blk)
+                outs.append(out)
+        else:
+            audios, pre_outs = [], []
+            for blk in blocks:
+                state, audio, out = self._block_pre_nr(params, state, blk)
+                audios.append(audio)
+                pre_outs.append(out)
+            nr_state, audio = nr_mod.spectral_nr_batch(
+                self.spectral_nr_params, state.nr, torch.stack(audios))
+            state = state._replace(nr=nr_state)
+            outs = []
+            for a, out in zip(audio, pre_outs):
+                state, out = self._tail_post_nr(params, state, a, out)
+                outs.append(out)
+        return state, {k: torch.stack([o[k] for o in outs])
+                       for k in outs[0]}
 
     # ------------------------------------------------------------------
     def run(self, iq, params: ChannelParams | None = None):

@@ -1,4 +1,4 @@
-"""Design-time FIR/IIR designers (NumPy), the part the SSB chain uses.
+"""Design-time FIR/IIR designers (NumPy), the part the ported chain uses.
 
 A copy of the matching functions of `t41x.dsp.firdesign`, so the port
 never imports JAX; `tests/test_torch_design.py` pins every designed
@@ -88,6 +88,34 @@ def bandpass_mask(f_lo: float, f_hi: float, fs: float = C.AUDIO_RATE,
     fft_length/2 + 1 (reference `Filter.cpp:18`)."""
     taps = complex_bandpass(fft_length // 2 + 1, f_lo, f_hi, fs, window)
     return os_filter_mask(taps, fft_length)
+
+
+def biquad_rbj(f0: float, q: float, fs: float, ftype: str = "lowpass"):
+    """RBJ audio-EQ-cookbook biquad (reference `SetIIRCoeffs`,
+    `FIR.cpp:1076-1116`).  Returns (b, a) with a = [1, a1, a2] in the
+    standard sign convention  y = b·x - a1·y1 - a2·y2.
+    """
+    f0 = min(f0, fs / 2.0)
+    w0 = 2.0 * np.pi * f0 / fs
+    sw, cw = np.sin(w0), np.cos(w0)
+    alpha = sw / (2.0 * q)
+    a0 = 1.0 + alpha
+    if ftype == "lowpass":
+        b = np.array([(1 - cw) / 2, 1 - cw, (1 - cw) / 2]) / a0
+        a = np.array([1.0, -2 * cw / a0, (1 - alpha) / a0])
+    elif ftype == "notch":
+        b = np.array([1.0, -2 * cw, 1.0]) / a0
+        a = np.array([1.0, -2 * cw / a0, (1 - alpha) / a0])
+    elif ftype == "highpass":
+        b = np.array([(1 + cw) / 2, -(1 + cw), (1 + cw) / 2]) / a0
+        a = np.array([1.0, -2 * cw / a0, (1 - alpha) / a0])
+    elif ftype == "peak":
+        A = 1.0  # placeholder gain; EQ bands use precomputed tables instead
+        b = np.array([1 + alpha * A, -2 * cw, 1 - alpha * A]) / a0
+        a = np.array([1.0, -2 * cw / a0, (1 - alpha) / a0])
+    else:
+        raise ValueError(ftype)
+    return b, a
 
 
 def dc_block_biquad():

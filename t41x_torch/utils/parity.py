@@ -6,6 +6,10 @@
   the panadapter's ~60 dB range (bins below peak - 60 dB clip to the
   display floor); the bound is 0.5 dB, below the display's ~1-2 dB per
   pixel.
+* `psd_err_db` — the steady-state audio power-spectrum error of an
+  adaptive stage (LMS NR, notch, SAM PLL), whose waveform trajectories
+  diverge between any two arithmetic orders; the bound is 3 dB
+  (`tools/chipcheck.py`'s "spectral" rows).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import numpy as np
 
 AUDIO_SNR_MIN_DB = 55.0
 SPECTRUM_ERR_MAX_DB = 0.5
+PSD_ERR_MAX_DB = 3.0
 
 
 def _np(a) -> np.ndarray:
@@ -36,3 +41,18 @@ def spectrum_err_db(ref, got) -> float:
     fl = max(r.max(), g.max()) * 1e-6
     return float(np.max(np.abs(10 * np.log10(np.maximum(g, fl))
                                - 10 * np.log10(np.maximum(r, fl)))))
+
+
+def psd_err_db(ref, got, last: int = 2) -> float:
+    """Largest dB difference of the Hann-windowed power spectra of the
+    last `last` blocks, per channel, over the bins within 40 dB of the
+    reference's peak.  ref/got: (n_blocks, ..., N) block-major streams."""
+    def psd(a):
+        a = np.moveaxis(_np(a).astype(np.float64)[-last:], 0, -2)
+        a = a.reshape(a.shape[:-2] + (-1,))
+        w = np.hanning(a.shape[-1])
+        return 10 * np.log10(np.abs(np.fft.rfft(a * w)) ** 2 + 1e-12)
+
+    pr, pg = psd(ref), psd(got)
+    mask = pr > pr.max() - 40.0
+    return float(np.max(np.abs(pg[mask] - pr[mask])))

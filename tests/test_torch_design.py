@@ -11,13 +11,16 @@ import torch
 
 from t41x import constants as JC
 from t41x.chain import ChainSpec as JSpec, RxChain as JChain
-from t41x.dsp import agc as jagc, firdesign as jfd, iir as jiir
+from t41x.demod import am as jam, sam as jsam
+from t41x.dsp import agc as jagc, firdesign as jfd, iir as jiir, nr as jnr
 from t41x.kernels.frontend_pallas import FusedFrontEnd as JFront
 from t41x.kernels.interp_pallas import FusedInterp as JInterp
 from t41x.utils import windows as jw
 from t41x_torch import constants as TC
 from t41x_torch.chain import ChainSpec, RxChain
+from t41x_torch.demod import am as tam, sam as tsam
 from t41x_torch.dsp import agc as tagc, firdesign as tfd, iir as tiir
+from t41x_torch.dsp import nr as tnr
 from t41x_torch.kernels.frontend import FusedFrontEnd as TFront
 from t41x_torch.kernels.interp import FusedInterp as TInterp
 from t41x_torch.utils import windows as tw
@@ -27,7 +30,14 @@ torch.set_num_threads(1)
 SPECS = [dict(mode="usb"),
          dict(mode="lsb", f_lo=-2800.0, f_hi=-300.0),
          dict(mode="usb", f_lo=100.0, f_hi=12000.0, agc_mode=4,
-              agc_thresh_db=35.0)]
+              agc_thresh_db=35.0),
+         dict(mode="am", f_lo=-5000.0, f_hi=5000.0),
+         dict(mode="sam", f_lo=-3000.0, f_hi=3000.0),
+         dict(mode="nfm"),                       # decimators refit to nfm_bw
+         dict(mode="nfm", f_lo=-6000.0, f_hi=6000.0, nfm_bw=9000.0),
+         dict(mode="usb", nr_mode=1, f_lo=300.0, f_hi=2700.0),
+         dict(mode="lsb", f_lo=-2800.0, f_hi=-300.0, nr_mode=2,
+              notch_on=True)]
 EQ = np.testing.assert_array_equal
 
 
@@ -39,10 +49,18 @@ def test_chain_designs_equal(kw):
         a, b = getattr(t, name), getattr(j, name)
         assert a.dtype == b.dtype, name
         EQ(a, b, err_msg=name)
-    for f in ("R", "L", "AK", "G", "b0"):
-        EQ(getattr(t.dc_op, f), getattr(j.dc_op, f), err_msg=f)
-    assert t.agc_params == j.agc_params
-    assert t.vol_scale == j.vol_scale
+    for name in ("am_b", "am_a"):
+        a, b = getattr(t, name), getattr(j, name)
+        assert a.dtype == b.dtype, name
+        EQ(a, b, err_msg=name)
+    for op in ("dc_op", "am_op"):
+        for f in ("R", "L", "AK", "G", "b0"):
+            EQ(getattr(getattr(t, op), f), getattr(getattr(j, op), f),
+               err_msg=f"{op}.{f}")
+    for name in ("agc_params", "sam_params", "kim_params",
+                 "spectral_nr_params", "xanr_params", "notch_params",
+                 "vol_scale"):
+        assert getattr(t, name) == getattr(j, name), name
 
 
 def test_constants_equal():
@@ -81,6 +99,60 @@ def test_firdesign_equal():
         EQ(tfd.bandpass_mask(lo, hi), jfd.bandpass_mask(lo, hi))
     for a, b in zip(tfd.dc_block_biquad(), jfd.dc_block_biquad()):
         EQ(a, b)
+
+
+def test_biquad_rbj_equal():
+    for ftype in ("lowpass", "notch", "highpass", "peak"):
+        for f0, q, fs in ((3000.0, 1.3, 24000.0), (700.0, 0.7, 24000.0),
+                          (20000.0, 2.0, 24000.0), (5000.0, 1.3, 48000.0)):
+            for a, b in zip(tfd.biquad_rbj(f0, q, fs, ftype),
+                            jfd.biquad_rbj(f0, q, fs, ftype)):
+                assert a.dtype == b.dtype
+                EQ(a, b, err_msg=f"{ftype} {f0} {q} {fs}")
+    with pytest.raises(ValueError):
+        tfd.biquad_rbj(1000.0, 1.0, 24000.0, "allpass")
+
+
+def test_demod_designs_equal():
+    for f_hi in (2500.0, 3000.0, 5000.0):
+        lp = jfd.biquad_rbj(f_hi, 1.3, 24000.0, "lowpass")
+        for pole in (0.99, 0.95):
+            for a, b in zip(tam.am_post_cascade(*lp, pole=pole),
+                            jam.am_post_cascade(*lp, pole=pole)):
+                assert a.dtype == b.dtype
+                EQ(a, b)
+    assert (tam.ALPHA, tam.BETA) == (jam.ALPHA, jam.BETA)
+    assert tsam._ATAN_COEF.dtype == jsam._ATAN_COEF.dtype
+    EQ(tsam._ATAN_COEF, jsam._ATAN_COEF)
+    for kw in (dict(), dict(rate=48000.0), dict(omega_n=400.0, zeta=0.8),
+               dict(pll_fmax=2000.0, fade_leveler=0)):
+        assert tsam.sam_params(**kw) == jsam.sam_params(**kw), kw
+
+
+def test_nr_designs_equal():
+    EQ(tnr._hann(), jnr._hann())
+    EQ(tnr._sqrt_hann(), jnr._sqrt_hann())
+    assert (tnr.NR_FFT_L, tnr.HOP) == (jnr.NR_FFT_L, jnr.HOP)
+    for lo, hi in ((200.0, 3000.0), (-3000.0, -200.0), (-5000.0, 5000.0),
+                   (100.0, 150.0), (0.0, 12000.0)):
+        assert tnr._vad_bins(lo, hi) == jnr._vad_bins(lo, hi)
+        assert tnr.kim_params(lo, hi) == jnr.kim_params(lo, hi)
+        assert tnr.spectral_params(lo, hi) == jnr.spectral_params(lo, hi)
+    for notch in (False, True):
+        assert tnr.XanrParams(notch=notch) == jnr.XanrParams(notch=notch)
+    assert tnr.KimParams() == jnr.KimParams()
+    assert tnr.SpectralParams() == jnr.SpectralParams()
+    # the states' fields, their order and their initial values
+    for tf, jf, args in ((tnr.kim_state, jnr.kim_state, ()),
+                         (tnr.spectral_state, jnr.spectral_state, ()),
+                         (tnr.xanr_state, jnr.xanr_state,
+                          (jnr.XanrParams(),)),
+                         (tsam.sam_state, jsam.sam_state, ())):
+        ts, js = tf(*args, (3,)), jf(*args, (3,))
+        assert ts._fields == js._fields
+        for a, b in zip(ts, js):
+            assert a.numpy().dtype == b.dtype
+            EQ(a.numpy(), b)
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])

@@ -15,10 +15,14 @@ import torch
 
 from t41x_torch.chain import ChainSpec, RxChain
 from t41x_torch.chain import default_params as tparams
-from t41x_torch.dsp import agc as tagc, osfilter as tosf
+from t41x_torch.demod import sam as tsam
+from t41x_torch.dsp import agc as tagc, nr as tnr, osfilter as tosf
 from t41x_torch.kernels import _build
 from t41x_torch.kernels import agc as tk_agc
+from t41x_torch.kernels import nr_gain as tk_nr
 from t41x_torch.kernels import os_filter as tk_os
+from t41x_torch.kernels import sam as tk_sam
+from t41x_torch.kernels import xanr as tk_xanr
 from t41x_torch.kernels.frontend import FusedFrontEnd as TFront
 from t41x_torch.kernels.interp import FusedInterp as TInterp
 
@@ -43,9 +47,14 @@ def jx():
     from t41x.kernels.agc_pallas import agc_block_pallas
     from t41x.kernels.frontend_pallas import FusedFrontEnd
     from t41x.kernels.interp_pallas import FusedInterp
+    from t41x.kernels.nr_gain_pallas import kim_gains_pallas
+    from t41x.kernels.sam_pallas import sam_block_pallas
+    from t41x.kernels.xanr_pallas import xanr_block_pallas
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, agc=agc, os_filter=os_filter_matmul_pallas,
-        agc_block=agc_block_pallas, Front=FusedFrontEnd, Interp=FusedInterp)
+        agc_block=agc_block_pallas, Front=FusedFrontEnd, Interp=FusedInterp,
+        sam_block=sam_block_pallas, xanr_block=xanr_block_pallas,
+        kim_gains=kim_gains_pallas)
 
 
 def _cx(rng, *shape, scale=1.0):
@@ -88,6 +97,28 @@ def _state_close(got, ref, msg=""):
 
 def _front(cls, zoom):
     return cls(CHAIN.h1, CHAIN.h2, CHAIN.dc_b[0], CHAIN.dc_a[0], zoom=zoom)
+
+
+def _sam_y(rng, ch, b):
+    """Block b of an AM carrier at 120 Hz with per-channel levels and
+    light noise (tests/test_pallas_kernels.py's SAM stimulus)."""
+    t = (np.arange(256) + 256 * b) / 24000.0
+    y = np.exp(2j * np.pi * 120.0 * t) * (1.0 + 0.4 * np.cos(
+        2 * np.pi * 400.0 * t)) * np.linspace(0.5, 1.0, ch)[:, None]
+    return (y + _cx(rng, ch, 256, scale=0.01)).astype(np.complex64)
+
+
+def _audio(rng, ch, scale=0.2):
+    return (rng.standard_normal((ch, 256)) * scale).astype(np.float32)
+
+
+def _lidx0(ch):
+    """Leak indices alternating 120 and 200: the two fixed points of the
+    lidx quirk (clamped at the minimum; pinned at the maximum), so both
+    branches run.  Between them every step of lidx hangs on nev < nel,
+    whose two sides differ by ~two_mu * ngamma * y, below one float32
+    ulp: there the count of steps follows rounding, not the algorithm."""
+    return np.where(np.arange(ch) % 2 == 0, 120.0, 200.0).astype(np.float32)
 
 
 @pytest.mark.parametrize("ch", [5, 130])
@@ -173,10 +204,68 @@ def test_os_filter_plain_matches_pallas(jx, ch):
         _close(ts, js, 0.0, 0.0, "state")
 
 
+@pytest.mark.parametrize("ch", [5, 130])
+def test_sam_plain_matches_pallas(jx, ch):
+    rng = np.random.default_rng(26)
+    jnp = jx.jnp
+    p = tsam.sam_params()
+    js = tuple(jnp.zeros(ch, jnp.float32) for _ in range(5))
+    from t41x.demod.sam import SAMState as JSAMState
+    js, ts = JSAMState(*js), tsam.sam_state((ch,))
+    for b in range(BLOCKS):
+        y = _sam_y(rng, ch, b)
+        js, ja = jx.sam_block(p, js, jnp.asarray(y), interpret=True)
+        ts, ta = tk_sam.sam_block(p, ts, T(y))
+        _close(ta, ja, 1e-4, 1e-5, f"audio block {b}")
+        for f in ts._fields:
+            _close(getattr(ts, f), getattr(js, f), 1e-4, 1e-5, f)
+
+
+@pytest.mark.parametrize("ch", [5, 130])
+@pytest.mark.parametrize("notch", [False, True])
+def test_xanr_plain_matches_pallas(jx, notch, ch):
+    rng = np.random.default_rng(27)
+    jnp = jx.jnp
+    p = tnr.XanrParams(notch=notch)
+    ts = tnr.xanr_state(p, (ch,))._replace(lidx=T(_lidx0(ch)))
+    js = jx.jax.tree.map(lambda t: jnp.asarray(t.numpy()), ts)
+    for b in range(BLOCKS):
+        x = _audio(rng, ch)
+        js, jy = jx.xanr_block(p, js, jnp.asarray(x), interpret=True)
+        ts, ty = tk_xanr.xanr_block(p, ts, T(x))
+        _close(ty, jy, 1e-4, 1e-5, f"y block {b}")
+        for f in ts._fields:
+            _close(getattr(ts, f), getattr(js, f), 1e-4, 1e-5, f)
+
+
+@pytest.mark.parametrize("ch", [5, 130])
+def test_kim_gains_plain_matches_pallas(jx, ch):
+    """Two hops per block over 9 blocks, past the 15-slot ring wrap."""
+    rng = np.random.default_rng(28)
+    jnp = jx.jnp
+    p = tnr.kim_params(200.0, 3000.0)
+    tst = tnr.kim_state((ch,))
+    tg = (tst.X, tst.E, tst.Gts, tst.idx)
+    jg = tuple(jnp.asarray(t.numpy()) for t in tg)
+    for b in range(9):
+        pw = (rng.random((2, ch, 128)) * (1.0 + 9.0 * (b % 3))
+              ).astype(np.float32)
+        jg, jgain = jx.kim_gains(p, jg, jnp.asarray(pw), interpret=True)
+        tg, tgain = tk_nr.kim_gains(p, tg, T(pw))
+        # XLA's CPU code rounds some products and sums differently (1-ulp
+        # steps, grown where 1 - lam / E cancels): the tolerance of
+        # tests/test_pallas_kernels.py's kernel-vs-XLA check
+        _close(tgain, jgain, 1e-5, 1e-6, f"gains block {b}")
+        for a, r in zip(tg, jg):
+            _close(a, r, 1e-5, 1e-6, f"state block {b}")
+
+
 def test_wrappers_take_plain_version_on_cpu():
     """CPU tensors never reach the CUDA library: no build, no launch."""
     counts = (TFront.launches, tk_agc.agc_block.launches,
-              TInterp.launches, tk_os.os_filter_matmul_kernel.launches)
+              TInterp.launches, tk_os.os_filter_matmul_kernel.launches,
+              tk_sam.sam_block.launches, tk_xanr.xanr_block.launches,
+              tk_nr.kim_gains.launches)
     rng = np.random.default_rng(25)
     tf = _front(TFront, 0)
     tp = _params(2)
@@ -188,8 +277,17 @@ def test_wrappers_take_plain_version_on_cpu():
               torch.zeros(2, tfi.sub2 - 1), torch.ones(2))
     tk_os.os_filter_matmul_kernel(tosf.os_state((2,)), T(_cx(rng, 2, 256)),
                                   T(CHAIN.os_W))
+    tk_sam.sam_block(tsam.sam_params(), tsam.sam_state((2,)),
+                     T(_cx(rng, 2, 256)))
+    xp = tnr.XanrParams()
+    tk_xanr.xanr_block(xp, tnr.xanr_state(xp, (2,)), T(_audio(rng, 2)))
+    ks = tnr.kim_state((2,))
+    tk_nr.kim_gains(tnr.kim_params(), (ks.X, ks.E, ks.Gts, ks.idx),
+                    torch.ones(2, 2, 128))
     assert counts == (TFront.launches, tk_agc.agc_block.launches,
-                      TInterp.launches, tk_os.os_filter_matmul_kernel.launches)
+                      TInterp.launches, tk_os.os_filter_matmul_kernel.launches,
+                      tk_sam.sam_block.launches, tk_xanr.xanr_block.launches,
+                      tk_nr.kim_gains.launches)
     assert _build._lib is None
     with pytest.raises(ValueError, match="attack_buffsize"):
         tk_agc.agc_block(p, tagc.agc_state(p, (2,)), torch.zeros(
@@ -270,3 +368,54 @@ def test_os_filter_kernel_matches_plain_on_card(cuda):
         sk, yk = tk_os.os_filter_matmul_kernel(sk, x, W)
         sp, yp = tosf.os_filter_matmul(sp, x, W)
         _close(yk, yp.cpu(), 2e-3, 2e-4, "y")
+
+
+@pytest.mark.gpu
+def test_sam_kernel_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(35)
+    ch = 130
+    p = tsam.sam_params()
+    sk = sp = tsam.sam_state((ch,), cuda)
+    n0 = tk_sam.sam_block.launches
+    for b in range(BLOCKS):
+        y = T(_sam_y(rng, ch, b)).to(cuda)
+        sk, ak = tk_sam.sam_block(p, sk, y)
+        sp, ap = tk_sam.sam_block_plain(p, sp, y)
+        _close(ak, ap.cpu(), 1e-4, 1e-5, "audio")
+        for f in sp._fields:
+            _close(getattr(sk, f), getattr(sp, f).cpu(), 1e-4, 1e-5, f)
+    assert tk_sam.sam_block.launches == n0 + BLOCKS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("notch", [False, True])
+def test_xanr_kernel_matches_plain_on_card(cuda, notch):
+    rng = np.random.default_rng(36)
+    ch = 130
+    p = tnr.XanrParams(notch=notch)
+    sk = sp = tnr.xanr_state(p, (ch,), cuda)._replace(
+        lidx=T(_lidx0(ch)).to(cuda))
+    for b in range(BLOCKS):
+        x = T(_audio(rng, ch)).to(cuda)
+        sk, yk = tk_xanr.xanr_block(p, sk, x)
+        sp, yp = tk_xanr.xanr_block_plain(p, sp, x)
+        _close(yk, yp.cpu(), 1e-4, 1e-5, "y")
+        for f in sp._fields:
+            _close(getattr(sk, f), getattr(sp, f).cpu(), 1e-4, 1e-5, f)
+
+
+@pytest.mark.gpu
+def test_kim_gains_kernel_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(37)
+    ch = 130
+    p = tnr.kim_params(200.0, 3000.0)
+    st = tnr.kim_state((ch,), cuda)
+    gk = gp = (st.X, st.E, st.Gts, st.idx)
+    for b in range(9):
+        pw = T((rng.random((2, ch, 128)) * (1.0 + 9.0 * (b % 3))
+                ).astype(np.float32)).to(cuda)
+        gk, yk = tk_nr.kim_gains(p, gk, pw)
+        gp, yp = tk_nr.kim_gains_plain(p, gp, pw)
+        _close(yk, yp.cpu(), 0.0, 0.0, "gains")
+        for a, r in zip(gk, gp):
+            _close(a, r.cpu(), 0.0, 0.0, "state")

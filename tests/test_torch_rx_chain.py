@@ -145,8 +145,8 @@ def test_state_moves_between_t41x_and_port_mid_stream():
 
 
 def test_unported_options_raise():
-    for kw, item in ((dict(mode="am"), "item 9"), (dict(nr_mode=1), "item 10"),
-                     (dict(notch_on=True), "item 11"),
+    for kw, item in ((dict(mode="cw"), "item 11"),
+                     (dict(nb_on=True), "item 11"),
                      (dict(eq_on=True), "item 11"),
                      (dict(spectrum_zoom=2), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
