@@ -9,28 +9,34 @@ failure):
 1. build the CUDA kernels of `t41x_torch/csrc/` (nvcc, sm_90a) and time it;
 2. hold each kernel against its plain torch version on the card at the
    main path's shapes (1024 channels, 3 streamed blocks): K1 the fused
-   front end in its four variants (zoom None/0 x complex64/q15), K2 the
+   front end in its four variants (zoom None/0 x complex64/q15) and its
+   zoom 2^z variant K1z (zoom 1, 3, 7 complex64, zoom 1 q15), K2 the
    AGC block, K3 the output interpolation, K4 the overlap-save matmul,
-   K6 the SAM PLL, K7 the LMS in NR and notch form, K8 the Kim NR gains;
-   and time kernel and plain version (CUDA events, median of 25 runs
-   after warm-up);
+   K5 the AGC recurrence of 64-sample blocks, K6 the SAM PLL, K7 the LMS
+   in NR and notch form, K8 the Kim NR gains; and time kernel and plain
+   version (CUDA events, median of 25 runs after warm-up, 5 for the
+   plain versions of the per-sample recurrences);
 3. drive the main paths — `RxChain.block` with `use_kernels=True` — at
-   1024 channels x 12 blocks: the flagship spec (usb, zoom-x1
-   panadapter, audio-spectrum taps, x8 interpolation), the headless
-   spec (`spectrum_taps=False`), both with q15 ingest, then am, sam,
+   1024 channels x 12 blocks (8 for the slice-1 and -2 waveform specs):
+   the flagship spec (usb, zoom-x1 panadapter, audio-spectrum taps, x8
+   interpolation), the headless spec (`spectrum_taps=False`), both with
+   q15 ingest, then am, sam,
    nfm (with and without display taps), Kim, spectral and LMS NR, the
-   notch, ft8 and psk31.  Each spec's
-   kernel launches are counted in its run (every count is set to 0 just
-   before it), and its outputs are held against the same chain with
-   plain versions on the card: audio >= 55 dB SNR and displayed spectrum
-   <= 0.5 dB, or, for the adaptive stages (SAM PLL, LMS, notch), the
-   audio power spectrum of the last 2 blocks within 3 dB and SAM's
-   carrier within 0.1 Hz; plus finite values of the expected shapes;
+   notch, ft8, psk31, the zoom 2^z panadapter (zoom 1, 3, 7, zoom 1 with
+   q15), the radio's default spec, cw, the receive EQ and the noise
+   blanker; and one short-block AGC path (`agc_apply` over 64-sample
+   pieces, K5).  Each path's kernel launches are counted in its run
+   (every count is set to 0 just before it), and its outputs are held
+   against the same path with plain versions on the card: audio >= 55 dB
+   SNR and displayed spectrum <= 0.5 dB, or, for the adaptive stages
+   (SAM PLL, LMS, notch), the audio power spectrum of the last 2 blocks
+   within 3 dB and SAM's carrier within 0.1 Hz; CW keying equal; plus
+   finite values of the expected shapes;
 4. time the chain with kernels and with plain versions (complex input
-   samples per second): the rx spec at 1024 and 4096 channels, sam and
-   Kim and LMS NR at 1024; then, for rx, sam, nr_kim and nr_lms at 1024
-   channels, the device time per block of each CUDA kernel under
-   `torch.profiler`.
+   samples per second): the rx spec at 1024 and 4096 channels, the
+   radio's default spec, sam and Kim and LMS NR at 1024; then, for the
+   same five specs at 1024 channels, the device time per block of each
+   CUDA kernel under `torch.profiler`.
 
 It prints the kernels' JSON line, the card's name and power limit as
 `nvidia-smi` gives them, and as its last line
@@ -49,13 +55,18 @@ import numpy as np
 
 N_CH = 1024
 N_BLOCKS = 12       # per spec: >= 12 for the adaptive stages' lock
+N_BLOCKS_SHORT = 8  # the slice-1 and -2 waveform specs (no lock to wait for)
+AGC_PIECE = 64      # the short-block AGC path's block length (K5)
 RATE_CHANNELS = (1024, 4096)
 REPS = 25
+REPS_PLAIN = 5      # the per-sample plain recurrences (K2, K5, K6, K7)
+#                     take up to ~0.4 s a call
 
 # (name, source, TPU kernel it replaces)
 K1 = ("t41x_torch/csrc/frontend.cu",
       "t41x/kernels/frontend_pallas.py:280")
 K2 = ("t41x_torch/csrc/agc.cu", "t41x/kernels/agc_pallas.py:95")
+K5 = ("t41x_torch/csrc/agc.cu", "t41x/kernels/agc_pallas.py:38")
 K3 = ("t41x_torch/csrc/interp.cu", "t41x/kernels/interp_pallas.py:61")
 K4 = ("t41x_torch/csrc/os_filter.cu", "t41x/kernels/os_filter_pallas.py:32")
 K6 = ("t41x_torch/csrc/sam.cu", "t41x/kernels/sam_pallas.py:32")
@@ -63,29 +74,55 @@ K7 = ("t41x_torch/csrc/xanr.cu", "t41x/kernels/xanr_pallas.py:35")
 K8 = ("t41x_torch/csrc/nr_gain.cu", "t41x/kernels/nr_gain_pallas.py:35")
 
 # the main paths: ChainSpec keywords, parity measure, and the kernels that
-# must launch besides K1 and K3
+# must launch
 SPECS = {
-    "rx": (dict(mode="usb", spectrum_zoom=0), "waveform", ("K2",)),
+    "rx": (dict(mode="usb", spectrum_zoom=0), "waveform",
+           ("K1", "K2", "K3")),
     "rx_q15": (dict(mode="usb", spectrum_zoom=0, q15_input=True,
-                    clip_taps=True), "waveform", ("K2",)),
+                    clip_taps=True), "waveform", ("K1", "K2", "K3")),
     "headless": (dict(mode="usb", spectrum_taps=False), "waveform",
-                 ("K2", "K4")),
+                 ("K1", "K2", "K3", "K4")),
     "headless_q15": (dict(mode="usb", spectrum_taps=False, q15_input=True),
-                     "waveform", ("K2", "K4")),
-    "am": (dict(mode="am"), "waveform", ("K2",)),
+                     "waveform", ("K1", "K2", "K3", "K4")),
+    "am": (dict(mode="am"), "waveform", ("K1", "K2", "K3")),
     "sam": (dict(mode="sam", f_lo=-3000.0, f_hi=3000.0), "adaptive",
-            ("K2", "K6")),
-    "nfm": (dict(mode="nfm"), "waveform", ("K2",)),
+            ("K1", "K2", "K3", "K6")),
+    "nfm": (dict(mode="nfm"), "waveform", ("K1", "K2", "K3")),
     "nfm_headless": (dict(mode="nfm", spectrum_taps=False), "waveform",
-                     ("K2", "K4")),
-    "nr_kim": (dict(mode="usb", nr_mode=1), "waveform", ("K2", "K8")),
-    "nr_spectral": (dict(mode="usb", nr_mode=2), "waveform", ("K2",)),
-    "nr_lms": (dict(mode="usb", nr_mode=3), "adaptive", ("K2", "K7")),
-    "notch": (dict(mode="usb", notch_on=True), "adaptive", ("K2", "K7")),
-    "ft8": (dict(mode="ft8"), "waveform", ("K2",)),
-    "psk31": (dict(mode="psk31"), "waveform", ()),
+                     ("K1", "K2", "K3", "K4")),
+    "nr_kim": (dict(mode="usb", nr_mode=1), "waveform",
+               ("K1", "K2", "K3", "K8")),
+    "nr_spectral": (dict(mode="usb", nr_mode=2), "waveform",
+                    ("K1", "K2", "K3")),
+    "nr_lms": (dict(mode="usb", nr_mode=3), "adaptive",
+               ("K1", "K2", "K3", "K7")),
+    "notch": (dict(mode="usb", notch_on=True), "adaptive",
+              ("K1", "K2", "K3", "K7")),
+    "ft8": (dict(mode="ft8"), "waveform", ("K1", "K2", "K3")),
+    "psk31": (dict(mode="psk31"), "waveform", ("K1", "K3")),
+    "zoom1": (dict(mode="usb", spectrum_zoom=1), "waveform",
+              ("K1", "K2", "K3")),
+    "zoom3": (dict(mode="usb", spectrum_zoom=3), "waveform",
+              ("K1", "K2", "K3")),
+    "zoom7": (dict(mode="usb", spectrum_zoom=7), "waveform",
+              ("K1", "K2", "K3")),
+    # the spec t41x.radio.Radio.chain builds from a default RadioConfig:
+    # no output interpolation, so K3 does not run
+    "radio_default": (dict(mode="usb", f_lo=200.0, f_hi=3000.0, agc_mode=2,
+                           spectrum_zoom=1, interpolate_out=False),
+                      "waveform", ("K1", "K2")),
+    "zoom1_q15": (dict(mode="usb", spectrum_zoom=1, q15_input=True),
+                  "waveform", ("K1", "K2", "K3")),
+    "cw": (dict(mode="cw", cw_filter_index=2), "waveform",
+           ("K1", "K2", "K3")),
+    "eq": (dict(mode="usb", eq_on=True), "waveform", ("K1", "K2", "K3")),
+    "nb": (dict(mode="usb", nb_on=True), "waveform", ("K1", "K2", "K3")),
 }
-TIMED = ("rx", "sam", "nr_kim", "nr_lms")  # the specs phase 4 times
+# the slice-1 and -2 waveform specs, which run N_BLOCKS_SHORT blocks
+SHORT_SPECS = ("rx", "rx_q15", "headless", "headless_q15", "am", "nfm",
+               "nfm_headless", "nr_kim", "nr_spectral", "ft8", "psk31")
+# the specs phase 4 times and profiles
+TIMED = ("rx", "radio_default", "sam", "nr_kim", "nr_lms")
 
 
 def log(msg: str) -> None:
@@ -112,7 +149,8 @@ def main() -> int:
         from t41x_torch import constants as C
         from t41x_torch.chain import ChainSpec, RxChain, default_params
         from t41x_torch.demod import sam as sam_mod
-        from t41x_torch.dsp import agc as agc_mod, nr as nr_mod
+        from t41x_torch.dsp import agc as agc_mod, nb as nb_mod, nr as nr_mod
+        from t41x_torch.dsp.spectrum import ZoomFFT
         from t41x_torch.kernels import _build
         from t41x_torch.kernels import agc as kagc
         from t41x_torch.kernels import frontend as kfe
@@ -183,12 +221,12 @@ def main() -> int:
                           iq_amp=lin(0.97, 1.03),
                           iq_phase=lin(-0.02, 0.02))
 
-    def time_ms(fn):
+    def time_ms(fn, reps=REPS):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
         times = []
-        for _ in range(REPS):
+        for _ in range(reps):
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -260,6 +298,32 @@ def main() -> int:
                 time_ms(lambda: fe.block(p, st_k, iq)),
                 time_ms(lambda: fe.plain(p, st_k, iq)), err, (2e-4, 2e-5))
 
+    # K1z: the zoom 2^z tap in the kernel (composed operator) against the
+    # per-stage plain version; the 24 kHz output at K1's bounds, the
+    # decimated zoom stream and both states at the state bounds
+    for zoom, fmt in ((1, "c64"), (3, "c64"), (7, "c64"), (1, "q15")):
+        zf = ZoomFFT(zoom)
+        fe = kfe.FusedFrontEnd(rx.h1, rx.h2, rx.dc_b[0], rx.dc_a[0],
+                               zoom=zoom, zoom_sos=(zf.iir_b, zf.iir_a),
+                               zoom_h=zf.h)
+        st_k = st_p = fe.init_state((N_CH,), dev)
+        zst = zf.init_state((N_CH,), dev)
+        z_k = z_p = (zst.iir, zst.dec)
+        err = 0.0
+        for b in range(3):
+            iq = q15(blocks[b]) if fmt == "q15" else blocks[b]
+            out_k = fe.block(p, st_k, iq, z_k)
+            out_p = fe.plain(p, st_p, iq, z_p)
+            st_k, st_p, z_k, z_p = out_k[0], out_p[0], out_k[3:], out_p[3:]
+            err = max(err, close("K1z x", out_k[1], out_p[1], 2e-4, 2e-5))
+            state_close("K1z zoom stream", out_k[2], out_p[2])
+            state_close("K1z", st_k, st_p)
+            state_close("K1z zoom state", z_k, z_p)
+        iq = q15(blocks[0]) if fmt == "q15" else blocks[0]
+        row(f"K1 frontend zoom={zoom} {fmt}", K1,
+            time_ms(lambda: fe.block(p, st_k, iq, z_k)),
+            time_ms(lambda: fe.plain(p, st_k, iq, z_k)), err, (2e-4, 2e-5))
+
     ap = agc_mod.agc_params(2)
     st_k = st_p = agc_mod.agc_state(ap, (N_CH,), dev)
     err = 0.0
@@ -271,7 +335,33 @@ def main() -> int:
         for f in st_p._fields:
             close(f"K2 {f}", getattr(st_k, f), getattr(st_p, f), 1e-6, 1e-7)
     row("K2 agc_block", K2, time_ms(lambda: kagc.agc_block(ap, st_k, x)),
-        time_ms(lambda: kagc.agc_block_plain(ap, st_k, x)), err,
+        time_ms(lambda: kagc.agc_block_plain(ap, st_k, x), REPS_PLAIN), err,
+        (1e-6, 1e-7))
+
+    # K5: the recurrence alone over 64-sample pieces at K2's levels, its
+    # ring-max and |out| streams formed as agc_apply forms them
+    st = agc_mod.agc_state(ap, (N_CH,), dev)
+    c_k = c_p = (st.volts, st.save_volts, st.fast_backaverage,
+                 st.hang_backaverage, st.hang_counter, st.decay_type,
+                 st.state)
+    ring, abs_ring = st.ring, st.abs_ring
+    err = 0.0
+    for b in range(3):
+        x = cnoise(N_CH, AGC_PIECE, scale=(0.02, 0.5, 0.005)[b])
+        full = torch.cat([ring, x], dim=-1)
+        abs_full = torch.cat([abs_ring, x.abs()], dim=-1)
+        rm = agc_mod._sliding_window_max(abs_full, ap.attack_buffsize)[
+            ..., 1: 1 + AGC_PIECE].T.contiguous()
+        ao = abs_full[..., :AGC_PIECE].T.contiguous()
+        ring, abs_ring = full[..., AGC_PIECE:], abs_full[..., AGC_PIECE:]
+        c_k, v_k = kagc.agc_scan(ap, c_k, rm, ao)
+        c_p, v_p = kagc.agc_scan_plain(ap, c_p, rm, ao)
+        err = max(err, close("K5 volts", v_k, v_p, 1e-6, 1e-7))
+        for i, (a, r) in enumerate(zip(c_k, c_p)):
+            close(f"K5 carry[{i}]", a, r, 1e-6, 1e-7)
+    row("K5 agc_scan", K5, time_ms(lambda: kagc.agc_scan(ap, c_k, rm, ao)),
+        time_ms(lambda: kagc.agc_scan_plain(ap, c_k, rm, ao), REPS_PLAIN),
+        err,
         (1e-6, 1e-7))
 
     fi = kint.FusedInterp(rx.hi1, rx.hi2)
@@ -322,7 +412,7 @@ def main() -> int:
         for f in st_p._fields:
             close(f"K6 {f}", getattr(st_k, f), getattr(st_p, f), 1e-4, 1e-5)
     row("K6 sam_block", K6, time_ms(lambda: ksam.sam_block(sp, st_k, y)),
-        time_ms(lambda: ksam.sam_block_plain(sp, st_k, y)), err,
+        time_ms(lambda: ksam.sam_block_plain(sp, st_k, y), REPS_PLAIN), err,
         (1e-4, 1e-5))
 
     # K7: noise at the level of the chain's audio; leak indices at the
@@ -348,7 +438,8 @@ def main() -> int:
                       1e-5)
         row(f"K7 xanr {'notch' if notch else 'nr'}", K7,
             time_ms(lambda: kxanr.xanr_block(xp, st_k, x)),
-            time_ms(lambda: kxanr.xanr_block_plain(xp, st_k, x)), err,
+            time_ms(lambda: kxanr.xanr_block_plain(xp, st_k, x), REPS_PLAIN),
+            err,
             (1e-4, 1e-5))
 
     # K8: two hops a block, bin powers whose level changes from block to
@@ -374,57 +465,98 @@ def main() -> int:
                 "K2": (kagc.agc_block, "launches"),
                 "K3": (kint.FusedInterp, "launches"),
                 "K4": (kos.os_filter_matmul_kernel, "launches"),
+                "K5": (kagc.agc_scan, "launches"),
                 "K6": (ksam.sam_block, "launches"),
                 "K7": (kxanr.xanr_block, "launches"),
                 "K8": (knr.kim_gains, "launches")}
+
+    def reset_counts():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read_counts():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    def feed(counts, fed):
+        """Add a path's launches to the rows of the variants it ran."""
+        for r in rows:
+            k = r["name"][:2]
+            if fed.get(k, r["name"]) == r["name"]:
+                r["launches"] += counts[k]
+
     data = rf_blocks(N_CH, N_BLOCKS)
     data_q15 = q15(data)
     am_data = am_rf_blocks(N_CH, N_BLOCKS)
+    # cw: a carrier 750 Hz above the Fs/4-shifted tuning (the sidetone),
+    # keyed on and off every 2 blocks, in light noise
+    t = torch.arange(N_BLOCKS * C.BLOCK_SIZE, device=dev,
+                     dtype=torch.float64)
+    key = ((t // (2 * C.BLOCK_SIZE)) % 2 == 0).to(torch.float64)
+    car = torch.polar(0.3 * key, 2 * np.pi * (-C.SAMPLE_RATE / 4 + 750.0)
+                      * t / C.SAMPLE_RATE).to(torch.complex64)
+    cw_data = (car.reshape(N_BLOCKS, 1, C.BLOCK_SIZE)
+               + cnoise(N_BLOCKS, N_CH, C.BLOCK_SIZE, scale=0.01)
+               ).contiguous()
+    # nb: the tone in noise plus impulses, off the block grid
+    nb_data = data.clone()
+    nb_data[:, :, 700::1300] += 4.0
+    tuned = default_params((N_CH,), device=dev)
+    p_eq = p._replace(eq_gains=torch.rand(N_CH, 14, generator=gen,
+                                          device=dev))
 
-    def stream(chain, src, pr):
+    def stream(chain, src, pr, n_blocks):
         st = chain.init_state((N_CH,))
         outs = []
-        for b in range(N_BLOCKS):
+        for b in range(n_blocks):
             blk = (tuple(a[b] for a in src) if isinstance(src, tuple)
                    else src[b])
             st, out = chain.block(pr, st, blk)
             outs.append(out)
         return st, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
+    def both(kw, src, pr, n_blocks):
+        """The path with kernels (its launches counted) and with plain
+        versions: (st_k, out_k, counts, st_p, out_p)."""
+        chain_k = RxChain(ChainSpec(use_kernels=True, **kw), device=dev)
+        chain_p = RxChain(ChainSpec(use_kernels=False, **kw), device=dev)
+        reset_counts()
+        st_k, out_k = stream(chain_k, src, pr, n_blocks)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        st_p, out_p = stream(chain_p, src, pr, n_blocks)
+        return st_k, out_k, counts, st_p, out_p
+
     for name, (kw, measure, need) in SPECS.items():
+        B = N_BLOCKS_SHORT if name in SHORT_SPECS else N_BLOCKS
         q = kw.get("q15_input", False)
+        zoom = kw.get("spectrum_zoom", -1)
         taps = kw.get("spectrum_taps", True) and kw["mode"] != "psk31"
         if kw["mode"] == "sam":
             # tools/chipcheck.py's stimulus and default parameters: the
             # carrier sits 30 Hz off and every channel's PLL locks (the
             # spread fine-tune of `params` would put it up to 530 Hz off)
-            src, pr = am_data, default_params((N_CH,), device=dev)
+            src, pr = am_data, tuned
+        elif kw["mode"] == "cw":
+            src, pr = cw_data, tuned
+        elif kw.get("nb_on"):
+            src, pr = nb_data, p
         else:
-            src, pr = (data_q15 if q else data), p
-        chain_k = RxChain(ChainSpec(use_kernels=True, **kw), device=dev)
-        chain_p = RxChain(ChainSpec(use_kernels=False, **kw), device=dev)
-        for obj, attr in counters.values():
-            setattr(obj, attr, 0)
-        st_k, out_k = stream(chain_k, src, pr)
-        torch.cuda.synchronize()
-        counts = {k: getattr(obj, attr) for k, (obj, attr)
-                  in counters.items()}
-        st_p, out_p = stream(chain_p, src, pr)
-        for k in ("K1", "K3") + need:
+            src, pr = (data_q15 if q else data), (p_eq if kw.get("eq_on")
+                                                  else p)
+        st_k, out_k, counts, st_p, out_p = both(kw, src, pr, B)
+        for k in need:
             if counts[k] == 0:
                 raise AssertionError(f"{name}: kernel {k} was not launched")
         # each launch goes to the row of the variant this spec runs
-        zoom = 0 if kw.get("spectrum_zoom") == 0 else None
-        fed = {"K1": f"K1 frontend zoom={zoom} {'q15' if q else 'c64'}",
-               "K7": f"K7 xanr {'notch' if kw.get('notch_on') else 'nr'}"}
-        for r in rows:
-            k = r["name"][:2]
-            if fed.get(k, r["name"]) == r["name"]:
-                r["launches"] += counts[k]
-        B = N_BLOCKS
-        want = {"audio": (B, N_CH, C.BLOCK_SIZE),
+        feed(counts, {
+            "K1": f"K1 frontend zoom={zoom if zoom >= 0 else None} "
+                  f"{'q15' if q else 'c64'}",
+            "K7": f"K7 xanr {'notch' if kw.get('notch_on') else 'nr'}"})
+        want = {"audio": (B, N_CH, C.BLOCK_SIZE
+                          if kw.get("interpolate_out", True)
+                          else C.AUDIO_BLOCK),
                 "audio_24k": (B, N_CH, C.AUDIO_BLOCK)}
-        if kw.get("spectrum_zoom") == 0:
+        if zoom >= 0:
             want["rf_spectrum"] = (B, N_CH, C.SPECTRUM_RES)
         if taps:
             want["audio_spectrum"] = (B, N_CH, C.FFT_LENGTH)
@@ -432,6 +564,8 @@ def main() -> int:
             want["sam_carrier_hz"] = (B, N_CH)
         if kw["mode"] == "psk31":
             want["iq_baseband"] = (B, N_CH, C.AUDIO_BLOCK)
+        if kw["mode"] == "cw":
+            want["cw_combined"] = (B, N_CH)
         report = {}
         for k, shape in want.items():
             got, ref = out_k[k], out_p[k]
@@ -449,6 +583,11 @@ def main() -> int:
                 d = parity.spectrum_err_db(ref, got)
                 report[k + "_err_db"] = d
                 ok = d <= parity.SPECTRUM_ERR_MAX_DB
+            elif k == "cw_combined":
+                # relative to the largest combined value of the run
+                d = float((got - ref).abs().max() / ref.abs().max())
+                report[k + "_rel_err"] = d
+                ok = d <= 1e-4
             elif measure == "adaptive":
                 d = parity.psd_err_db(ref, got)
                 report[k + "_psd_err_db"] = d
@@ -459,14 +598,75 @@ def main() -> int:
                 ok = d >= parity.AUDIO_SNR_MIN_DB
             if not ok:
                 raise AssertionError(f"{name} {k}: parity {d} out of bound")
-        if kw.get("clip_taps"):
-            for k in ("adc_half_clip", "adc_quarter_clip"):
-                if not torch.equal(out_k[k], out_p[k]):
-                    raise AssertionError(f"{name} {k} differs")
+        exact = (("adc_half_clip", "adc_quarter_clip") if kw.get("clip_taps")
+                 else ()) + (("cw_keyed",) if kw["mode"] == "cw" else ())
+        for k in exact:
+            if out_k[k].shape != (B, N_CH) or not torch.equal(out_k[k],
+                                                               out_p[k]):
+                raise AssertionError(f"{name} {k} differs")
+        if kw["mode"] == "cw":
+            on = out_k["cw_keyed"].float().mean(dim=1)
+            report["cw_keyed_share_per_block"] = [round(float(v), 3)
+                                                  for v in on]
+            if not (bool(on.max() == 1.0) and bool(on.min() == 0.0)):
+                raise AssertionError(f"{name}: the keyed carrier was not "
+                                     f"seen on and off: {on.tolist()}")
+        if kw.get("nb_on"):
+            # blanking decisions: the samples the blanker replaced, found
+            # against the same chain without it (the blanker's input)
+            pre = {k: v for k, v in kw.items() if k != "nb_on"}
+            _, pre_k, _, _, pre_p = both(pre, src, pr, B)
+            m_k = out_k["audio_24k"] != pre_k["audio_24k"]
+            m_p = out_p["audio_24k"] != pre_p["audio_24k"]
+
+            def regions(m):
+                return int((m & ~torch.roll(m, 1, dims=-1)).sum())
+
+            report["nb_blanked_regions"] = regions(m_p)
+            report["nb_mask_samples_differ"] = int((m_k ^ m_p).sum())
+            report["nb_regions_differ"] = regions(m_k ^ m_p)
+            if regions(m_p) == 0:
+                raise AssertionError(f"{name}: nothing was blanked")
         if measure == "waveform":
             state_close(f"{name} chain", st_k, st_p)
         log(f"# main path {name}: {N_CH} ch x {B} blocks, launches "
             f"{counts}, kernels vs plain on the card {report}")
+
+    # the short-block AGC path: the same complex audio at 1024 channels
+    # through agc_apply in 64-sample pieces (K5), against the plain
+    # recurrence in the same pieces and against K2 in 256-sample blocks
+    # (re-blocking changes nothing in exact arithmetic: the window peak is
+    # exact and the recurrence runs per sample)
+    agc_in = torch.cat([cnoise(N_CH, C.AUDIO_BLOCK, scale=lvl)
+                        for lvl in (0.02, 0.5, 0.005)], dim=-1)
+
+    def agc_stream(use_kernels, piece):
+        st = agc_mod.agc_state(ap, (N_CH,), dev)
+        ys = []
+        for i in range(0, agc_in.shape[-1], piece):
+            st, y = agc_mod.agc_apply(ap, st, agc_in[..., i:i + piece],
+                                      use_kernels=use_kernels)
+            ys.append(y)
+        return st, torch.cat(ys, dim=-1)
+
+    reset_counts()
+    st_k, y_k = agc_stream(True, AGC_PIECE)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["K5"] == 0 or counts["K2"] != 0:
+        raise AssertionError(f"short-block AGC path: launches {counts}")
+    feed(counts, {})
+    st_p, y_p = agc_stream(False, AGC_PIECE)
+    st_2, y_2 = agc_stream(True, C.AUDIO_BLOCK)
+    report = {}
+    for ref_name, st_r, y_r in (("plain", st_p, y_p), ("K2", st_2, y_2)):
+        report[f"vs {ref_name} max |err|"] = close(
+            f"short-block AGC y vs {ref_name}", y_k, y_r, 1e-6, 1e-7)
+        for f in st_r._fields:
+            close(f"short-block AGC {f} vs {ref_name}", getattr(st_k, f),
+                  getattr(st_r, f), 1e-6, 1e-7)
+    log(f"# main path agc_short: {N_CH} ch x {agc_in.shape[-1]} samples in "
+        f"{AGC_PIECE}-sample pieces, launches {counts}, {report}")
 
     # ---- 4. rates ----------------------------------------------------------
     def rate(name, kw, n_ch, use_kernels, n_blocks):

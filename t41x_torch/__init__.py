@@ -6,8 +6,9 @@ as its `t41x` twin and keeps its inputs, outputs and carried-state
 layout, so the two are held equal on the same input
 (`tests/test_torch_*.py`).  The package imports torch and NumPy, never
 JAX: the design-time code (`constants`, `utils.windows`,
-`dsp.firdesign`, the operator constructors in `dsp.iir` / `dsp.osfilter`)
-is a copy pinned equal to `t41x`'s.
+`dsp.firdesign`, the operator constructors in `dsp.iir` / `dsp.osfilter`
+/ `dsp.chunk_ops`, the EQ, CW and zoom designs) is a copy pinned equal
+to `t41x`'s.
 
     t41x_torch.chain.RxChain, ChainSpec — the receive chain
     t41x_torch.kernels.*                 — the CUDA kernels and their

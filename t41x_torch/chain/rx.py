@@ -3,24 +3,22 @@
 One block of the reference's per-block hot path (`ProcessIQData`,
 tmr4/T41_SDR `Process.cpp:70-944`):
 
-    q15->f32, RF gain, DC block, IQ correction, zoom-x1 panadapter tap,
-    Fs/4 shift, NCO mix, x4 + x2 decimation, overlap-save band-pass
-    (+ audio-spectrum / S-meter tap), AGC, demod (SSB/AM/SAM/NFM), noise
-    reduction, automatic notch, x2 + x4 interpolation, volume
+    q15->f32, RF gain, DC block, IQ correction, zoom x1 or 2^z
+    panadapter tap, Fs/4 shift, NCO mix, x4 + x2 decimation,
+    overlap-save band-pass (+ audio-spectrum / S-meter tap), AGC, demod
+    (SSB/CW/AM/SAM/NFM), receive EQ, noise reduction, automatic notch,
+    noise blanker, CW detection and narrow CW filter, x2 + x4
+    interpolation, volume
 
 as `block(params, state, iq) -> (state, outputs)` with every per-channel
 state carried explicitly (`RxState`, the same fields and layouts as
 `t41x`'s, so `t41x_torch.utils.convert` moves a stream between the two
 mid-way) and channels on the leading axes.  `ChainSpec.use_kernels`
-routes the front end, AGC, SAM PLL, Kim NR gains, LMS/notch,
-interpolation and the display-free OS filter through the hand-written
-CUDA kernels of `t41x_torch.kernels` (their plain torch versions on CPU
-tensors).
-
-Ported: modes usb/lsb/ft8/am/sam/nfm/psk31, `nr_mode` 0-3, `notch_on`,
-`spectrum_zoom` -1 or 0, q15 ingest, clip taps, both `spectrum_taps`
-values.  Every other spec option raises `NotImplementedError` naming
-its ROADMAP.md item.
+routes the front end (with its zoom x1 or 2^z tap), AGC, SAM PLL, Kim
+NR gains, LMS/notch, interpolation and the display-free OS filter
+through the hand-written CUDA kernels of `t41x_torch.kernels` (their
+plain torch versions on CPU tensors).  Every `ChainSpec` that `t41x`
+accepts runs here.
 """
 
 from __future__ import annotations
@@ -32,19 +30,15 @@ import numpy as np
 import torch
 
 from t41x_torch import constants as C
-from t41x_torch.demod import am as am_mod, nfm as nfm_mod, sam as sam_mod
-from t41x_torch.dsp import agc as agc_mod
-from t41x_torch.dsp import fir, firdesign as fd, iir, nco, nr as nr_mod
-from t41x_torch.dsp import osfilter
+from t41x_torch.demod import am as am_mod, cw as cw_mod, nfm as nfm_mod
+from t41x_torch.demod import sam as sam_mod
+from t41x_torch.dsp import agc as agc_mod, eq as eq_mod
+from t41x_torch.dsp import fir, firdesign as fd, iir, nb as nb_mod, nco
+from t41x_torch.dsp import nr as nr_mod, osfilter
 from t41x_torch.dsp import spectrum as spectrum_mod
 
 SSB_FAMILY = ("usb", "lsb", "ft8", "cw")
 MODES = SSB_FAMILY + ("am", "sam", "nfm", "psk31")
-NUM_EQ_BANDS = 14
-
-# spec options outside the port so far -> the ROADMAP.md item that ports
-# them
-_NOT_PORTED_MODES = {"cw": 11}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,22 +72,6 @@ class ChainSpec:
         assert self.mode in MODES, self.mode
 
 
-def _check_ported(spec: ChainSpec) -> None:
-    def no(what: str, item: int):
-        raise NotImplementedError(
-            f"{what} is not ported to t41x_torch yet (ROADMAP.md Queue 1 "
-            f"item {item})")
-
-    if spec.mode in _NOT_PORTED_MODES:
-        no(f"mode {spec.mode!r}", _NOT_PORTED_MODES[spec.mode])
-    if spec.nb_on:
-        no("the noise blanker", 11)
-    if spec.eq_on:
-        no("the receive EQ", 11)
-    if spec.spectrum_zoom >= 1:
-        no(f"spectrum_zoom={spec.spectrum_zoom} (zoom 2^z)", 12)
-
-
 class ChannelParams(NamedTuple):
     """Dynamic per-channel parameters, (...,) tensors for a channel batch."""
     nco_freq: torch.Tensor       # fine-tune NCO, Hz
@@ -112,13 +90,14 @@ def default_params(channels: tuple[int, ...] = (), nco_freq: float = 0.0,
 
     return ChannelParams(f(nco_freq), f(0.0), f(1.0), f(1.0), f(0.0),
                          f(volume),
-                         torch.ones(channels + (NUM_EQ_BANDS,), device=device))
+                         torch.ones(channels + (eq_mod.NUM_BANDS,),
+                                    device=device))
 
 
 class RxState(NamedTuple):
     """Carried DSP state between blocks (leading dims = channels); the
-    fields of `t41x.chain.rx.RxState`.  Fields of stages outside the
-    slice hold zeros of the same layout, or ()."""
+    fields and layouts of `t41x.chain.rx.RxState`.  Fields of stages the
+    spec leaves out hold zeros of the same layout, or ()."""
     dc_bq: torch.Tensor      # (..., 2, 1, 2) DC-block biquad state (I,Q)
     nco_phase: torch.Tensor  # (...,)
     dec1: torch.Tensor       # (..., T1-1) complex
@@ -132,11 +111,11 @@ class RxState(NamedTuple):
     int2: torch.Tensor
     smeter_avg: torch.Tensor  # (...,) audioMaxSquaredAve EMA
     nr: object               # NR state for the configured nr_mode (or ())
-    cw: object
-    cw_lp: object
+    cw: object               # CWState (or ())
+    cw_lp: object            # (..., 6, 2) narrow CW filter state (or ())
     notch: object            # Xanr notch state (or ())
-    eq: object
-    zoom: object             # zoom1 EMA (..., 512) with spectrum_zoom=0
+    eq: object               # (..., 14, S, 2) EQ band states (or ())
+    zoom: object             # ZoomState, or the zoom1 EMA (..., 512)
 
 
 class RxChain:
@@ -144,7 +123,6 @@ class RxChain:
     plus tensors on `device`), and `block` over (params, state, iq)."""
 
     def __init__(self, spec: ChainSpec = ChainSpec(), device="cpu"):
-        _check_ported(spec)
         self.spec = spec
         self.device = torch.device(device)
         lp = min(max(spec.f_hi, -spec.f_lo), 10_000.0)
@@ -196,6 +174,24 @@ class RxChain:
         self.spectral_nr_params = nr_mod.spectral_params(spec.f_lo, spec.f_hi)
         self.xanr_params = nr_mod.XanrParams(notch=False)
         self.notch_params = nr_mod.XanrParams(notch=True)
+        rate = spec.sample_rate / C.DF
+        self.eq = eq_mod.EQDesign(rate) if spec.eq_on else None
+        self.cw = (cw_mod.CWDetector(spec.cw_tone_hz, rate)
+                   if spec.mode == "cw" and spec.cw_decode else None)
+        if spec.mode == "cw" and spec.cw_filter_index < 5:
+            # the narrow CW audio low-pass (FIR.cpp:15-66, applied
+            # Process.cpp:882-912): 12-pole Chebyshev I, chunk-parallel
+            sos = fd.cw_audio_lpf(fd.CW_FILTER_FC_HZ[spec.cw_filter_index],
+                                  fs=rate)
+            self.cw_lp_b = sos[:, :3].astype(np.float32)
+            self.cw_lp_a = sos[:, 3:].astype(np.float32)
+            self.cw_lp_op = iir.BiquadChunked(self.cw_lp_b, self.cw_lp_a,
+                                              chunk=64)
+        else:
+            self.cw_lp_b = None
+        self.zoomfft = (spectrum_mod.ZoomFFT(spec.spectrum_zoom,
+                                             spec.sample_rate)
+                        if spec.spectrum_zoom >= 1 else None)
 
         # the designs the plain stages use, on the chain's device
         self.tensors = {
@@ -206,10 +202,16 @@ class RxChain:
         if spec.use_kernels:
             from t41x_torch.kernels.frontend import FusedFrontEnd
             from t41x_torch.kernels.interp import FusedInterp
+            if self.zoomfft is not None:
+                zkw = dict(zoom=spec.spectrum_zoom,
+                           zoom_sos=(self.zoomfft.iir_b,
+                                     self.zoomfft.iir_a),
+                           zoom_h=self.zoomfft.h)
+            else:
+                zkw = dict(zoom=0 if spec.spectrum_zoom == 0 else None)
             self.fused_fe = FusedFrontEnd(
                 self.h1, self.h2, self.dc_b[0], self.dc_a[0],
-                spec.sample_rate,
-                zoom=0 if spec.spectrum_zoom == 0 else None)
+                spec.sample_rate, **zkw)
             self.fused_interp = (FusedInterp(self.hi1, self.hi2)
                                  if spec.interpolate_out else None)
         else:
@@ -246,8 +248,12 @@ class RxChain:
                 if spec.nr_mode == 3 else ()),
             notch=(nr_mod.xanr_state(self.notch_params, channels, dev)
                    if spec.notch_on else ()),
-            cw=(), cw_lp=(), eq=(),
-            zoom=(z((spectrum_mod.RES,)) if spec.spectrum_zoom == 0
+            cw=(self.cw.init_state(channels, dev) if self.cw else ()),
+            cw_lp=(iir.biquad_state(channels, self.cw_lp_b.shape[0], dev)
+                   if self.cw_lp_b is not None else ()),
+            eq=(self.eq.init_state(channels, dev) if self.eq else ()),
+            zoom=(self.zoomfft.init_state(channels, dev) if self.zoomfft
+                  else z((spectrum_mod.RES,)) if spec.spectrum_zoom == 0
                   else ()),
         )
 
@@ -316,6 +322,13 @@ class RxChain:
                     self.fused_fe.block(params, st4, iq)
                 zoom_state, outputs["rf_spectrum"] = \
                     spectrum_mod.zoom1_from_segment(zoom_state, seg)
+            elif self.zoomfft is not None:
+                (dc_bq, nco_phase, dec1, dec2), x, zdec, z_iir, z_dec = \
+                    self.fused_fe.block(params, st4, iq,
+                                        (zoom_state.iir, zoom_state.dec))
+                zoom_state, outputs["rf_spectrum"] = \
+                    self.zoomfft.spectrum_from_decimated(
+                        zoom_state._replace(iir=z_iir, dec=z_dec), zdec)
             else:
                 (dc_bq, nco_phase, dec1, dec2), x = self.fused_fe.block(
                     params, st4, iq)
@@ -344,6 +357,10 @@ class RxChain:
 
         # --- frequency translation, decimation x4 then x2 ---------------
         x = nco.fs4_shift(x)
+        if self.zoomfft is not None:
+            # zoom x2^z taps the Fs/4-shifted data (Process.cpp:212-215)
+            zoom_state, outputs["rf_spectrum"] = self.zoomfft.block(
+                zoom_state, x)
         nco_phase, x = nco.nco_mix(state.nco_phase, x, params.nco_freq,
                                    spec.sample_rate)
         dec1, x = fir.fir_decimate(state.dec1, x, self.tensors["h1"], C.DF1)
@@ -389,6 +406,10 @@ class RxChain:
             upd["smeter_avg"] = smeter_avg = (0.5 * spectrum.amax(dim=-1)
                                               + 0.5 * state.smeter_avg)
             outputs["smeter_avg"] = smeter_avg
+
+        if spec.eq_on:  # receive EQ (Process.cpp:828-831)
+            upd["eq"], audio = self.eq.apply(state.eq, audio,
+                                             params.eq_gains)
         return upd, audio, outputs
 
     def _os_filter(self, osf, x):
@@ -407,15 +428,23 @@ class RxChain:
         return (*osfilter.os_filter_matmul(osf, x, t["os_W"]), None)
 
     def _tail_post_nr(self, params, state, audio, outputs):
-        """Automatic notch, interpolation back to 192 kHz and volume.
-        `state` carries current values for every field; only the post-NR
-        fields are replaced."""
+        """Automatic notch, noise blanker, CW detection and filter,
+        interpolation back to 192 kHz and volume.  `state` carries current
+        values for every field; only the post-NR fields are replaced."""
         spec = self.spec
         notch_state = state.notch
         if spec.notch_on:  # Process.cpp:862-866
             notch_state, audio = nr_mod.xanr(self.notch_params, notch_state,
                                              audio,
                                              use_kernels=spec.use_kernels)
+        if spec.nb_on:  # Process.cpp:873-876
+            audio = nb_mod.noise_blanker(audio)
+        cw_state, cw_lp_state = state.cw, state.cw_lp
+        if self.cw is not None:  # Process.cpp:878-913
+            cw_state, outputs["cw_keyed"], outputs["cw_combined"] = \
+                self.cw.block(cw_state, audio)
+        if self.cw_lp_b is not None:
+            cw_lp_state, audio = self.cw_lp_op.apply(cw_lp_state, audio)
         outputs["audio_24k"] = audio
         int1, int2 = state.int1, state.int2
         vol = volume_to_amplification(params.volume)
@@ -429,8 +458,8 @@ class RxChain:
             outputs["audio"] = a * (C.DF * vol[..., None])
         else:
             outputs["audio"] = audio * vol[..., None]
-        return state._replace(int1=int1, int2=int2, notch=notch_state), \
-            outputs
+        return state._replace(int1=int1, int2=int2, notch=notch_state,
+                              cw=cw_state, cw_lp=cw_lp_state), outputs
 
     # ------------------------------------------------------------------
     def block_batch(self, params: ChannelParams, state: RxState, blocks):

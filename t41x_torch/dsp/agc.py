@@ -9,9 +9,10 @@ gain slope.
 
 `agc_apply` hoists everything that does not depend on the gain
 recurrence out of the per-sample loop (delay, sliding max, gain curve);
-the loop carries seven per-channel scalars.  With `use_kernels` and a
-block at least one delay line long it hands the whole block to the CUDA
-kernel module (`t41x_torch.kernels.agc`).
+the loop carries seven per-channel scalars.  With `use_kernels` a block
+at least one delay line long goes whole to the CUDA kernel K2, and a
+shorter one runs its recurrence in kernel K5
+(`t41x_torch.kernels.agc`).
 """
 
 from __future__ import annotations
@@ -227,13 +228,29 @@ def gain_curve(p: AGCParams, volts: torch.Tensor) -> torch.Tensor:
             ) / volts
 
 
+def gain_scan(p: AGCParams, carry, rm_t: torch.Tensor, ao_t: torch.Tensor):
+    """The gain recurrence alone: `agc_step` over the samples.
+
+    carry: the 7 (...,) states (4 float32, then hang_counter/decay_type/
+    state int32); rm_t/ao_t: (N, ...) time-major ring-max and |out|
+    streams.  Returns (final carry, volts_seq (N, ...)), the signature of
+    `t41x.kernels.agc_pallas.agc_scan_pallas`."""
+    volts_seq = []
+    for n in range(rm_t.shape[0]):
+        carry = agc_step(p, carry, rm_t[n], ao_t[n])
+        volts_seq.append(carry[0])
+    return carry, torch.stack(volts_seq)
+
+
 def agc_apply(params: AGCParams, st: AGCState, x: torch.Tensor,
               use_kernels: bool = False):
     """Apply AGC to a complex block.
 
     x: (..., N) complex64.  Returns (new_state, y) with y delayed by
     attack_buffsize samples (the look-ahead delay line, like the
-    reference).
+    reference).  With `use_kernels`, a block at least one delay line long
+    goes to the whole-block kernel K2; a shorter one keeps the prework
+    here and runs its recurrence in kernel K5.
     """
     if params.mode == 0:
         return st, params.fixed_gain * x
@@ -242,12 +259,7 @@ def agc_apply(params: AGCParams, st: AGCState, x: torch.Tensor,
     B = p.attack_buffsize
     N = x.shape[-1]
 
-    if use_kernels:
-        if N < B:
-            raise NotImplementedError(
-                "AGC blocks shorter than attack_buffsize need the "
-                "recurrence-only kernel K5, not ported yet (ROADMAP.md "
-                "Queue 2, K5)")
+    if use_kernels and N >= B:
         from t41x_torch.kernels.agc import agc_block
         return agc_block(p, st, x)
 
@@ -262,12 +274,13 @@ def agc_apply(params: AGCParams, st: AGCState, x: torch.Tensor,
 
     carry = (st.volts, st.save_volts, st.fast_backaverage,
              st.hang_backaverage, st.hang_counter, st.decay_type, st.state)
-    volts_seq = []
-    for n in range(N):
-        carry = agc_step(p, carry, ring_max[..., n], abs_out[..., n])
-        volts_seq.append(carry[0])
-    mult = gain_curve(p, torch.stack(volts_seq, dim=-1))
-    y = delayed * mult
+    rm_t, ao_t = ring_max.movedim(-1, 0), abs_out.movedim(-1, 0)
+    if use_kernels:
+        from t41x_torch.kernels.agc import agc_scan
+        carry, volts_seq = agc_scan(p, carry, rm_t, ao_t)
+    else:
+        carry, volts_seq = gain_scan(p, carry, rm_t, ao_t)
+    y = delayed * gain_curve(p, volts_seq.movedim(0, -1))
 
     new_state = AGCState(full[..., N:], abs_full[..., N:], *carry)
     return new_state, y

@@ -54,6 +54,11 @@ def fir_decimate(state: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
     return new_state, y
 
 
+def fir_apply(state: torch.Tensor, x: torch.Tensor, h: torch.Tensor):
+    """Streaming FIR filter (CMSIS `arm_fir_f32`): decimation by 1."""
+    return fir_decimate(state, x, h, 1)
+
+
 def fir_interpolate(state: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
                     factor: int):
     """Streaming FIR interpolator (CMSIS `arm_fir_interpolate_f32`

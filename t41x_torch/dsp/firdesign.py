@@ -9,6 +9,8 @@ designers:
   * RBJ biquad coefficients (`FIR.cpp:1076-1116`)
   * frequency-domain filter mask (`Filter.cpp:260-284`)
   * interpolation prototypes (`Filter.cpp:396-438`)
+  * the narrow CW audio low-pass and the zoom-FFT anti-alias IIR
+    (`FIR.cpp:15-66, 582-885`), designed with scipy inside the function
 """
 
 from __future__ import annotations
@@ -141,3 +143,54 @@ def interpolation_prototypes(lp_hz: float | None = None):
     h1 = fir_kaiser(C.INT1_TAPS, lp, C.N_ATT, fs=C.SAMPLE_RATE / C.DF1)
     h2 = fir_kaiser(C.INT2_TAPS, lp, C.N_ATT, fs=C.SAMPLE_RATE)
     return h1, h2
+
+
+def _tune_neg3db(make_sos, target_hz: float, fs: float) -> np.ndarray:
+    """Bisect a lowpass design's band-edge parameter so its -3 dB point
+    lands on `target_hz` (the reference publishes its IIR cutoffs as
+    -3 dB frequencies, e.g. '840HZ Fc' `FIR.cpp:15`, '12kHz' per-zoom
+    `FIR.cpp:588`).  make_sos(wn_hz) -> scipy sos."""
+    from scipy import signal
+
+    def mag_at_target(sos):
+        _, h = signal.sosfreqz(sos, worN=[target_hz], fs=fs)
+        return 20.0 * np.log10(max(abs(h[0]), 1e-12))
+
+    lo, hi = target_hz * 0.5, min(target_hz * 1.5, fs * 0.499)
+    for _ in range(48):
+        mid = 0.5 * (lo + hi)
+        if mag_at_target(make_sos(mid)) < -3.0:
+            lo = mid
+        else:
+            hi = mid
+    return make_sos(0.5 * (lo + hi))
+
+
+def cw_audio_lpf(fc_3db_hz: float, fs: float = C.AUDIO_RATE) -> np.ndarray:
+    """Narrow CW audio low-pass: 12-pole Chebyshev type I, 0.02 dB
+    passband ripple, -3 dB at fc — the design family of the reference's
+    five shipped coefficient sets (`FIR.cpp:15-66`: 840/1080/1320/1800/
+    2000 Hz at 24 kS/s).  Returns scipy sos (6 stages)."""
+    from scipy import signal
+
+    return _tune_neg3db(
+        lambda wn: signal.cheby1(12, 0.02, wn, fs=fs, output="sos"),
+        fc_3db_hz, fs)
+
+
+# published cutoffs of the five shipped CW filters (FIR.cpp:15-66); the
+# last table's actual -3 dB point is 2038 Hz, though labeled "2.0KHZ Fc"
+CW_FILTER_FC_HZ = (840.0, 1080.0, 1320.0, 1800.0, 2038.12)
+
+
+def zoom_antialias_iir(zoom: int, fs: float = C.SAMPLE_RATE) -> np.ndarray:
+    """Zoom-FFT anti-alias low-pass for decimation by 2^zoom: 8th-order
+    elliptic, 0.02 dB ripple, 60 dB stopband, -3 dB at the decimated
+    Nyquist — the design family of the reference's per-zoom `mag_coeffs`
+    biquad tables (`FIR.cpp:582-885`).  Returns scipy sos (4 stages)."""
+    from scipy import signal
+
+    fc = fs / (2.0 * (1 << zoom))
+    return _tune_neg3db(
+        lambda wn: signal.ellip(8, 0.02, 60.0, wn, fs=fs, output="sos"),
+        fc, fs)

@@ -1,10 +1,14 @@
-"""K2: one whole AGC block — wrapper, plain version, CUDA kernel.
+"""K2 and K5: the AGC kernels — wrappers, plain versions, CUDA kernels.
 
-Port of `t41x.kernels.agc_pallas.agc_block_pallas`: |x|, look-ahead
+K2 ports `t41x.kernels.agc_pallas.agc_block_pallas`: |x|, look-ahead
 delay, sliding-window peak, the WDSP gain recurrence, gain curve and
-delayed multiply in one launch (`t41x_torch/csrc/agc.cu`).  The plain
+delayed multiply in one launch (`t41x_torch/csrc/agc.cu`).  Its plain
 version is the scan form of `t41x_torch.dsp.agc.agc_apply`.  The new
 delay line and its magnitudes are formed here, as the TPU wrapper does.
+
+K5 ports `agc_scan_pallas`: the gain recurrence alone over precomputed
+ring-max and |out| streams, which `agc_apply` runs for blocks shorter
+than the delay line.  Its plain version is `dsp.agc.gain_scan`.
 """
 
 from __future__ import annotations
@@ -14,17 +18,23 @@ import math
 
 import torch
 
-from t41x_torch.dsp.agc import AGCParams, AGCState, agc_apply
+from t41x_torch.dsp.agc import AGCParams, AGCState, agc_apply, gain_scan
 from t41x_torch.kernels import _build
 
 _P, _I = _build.PTR, _build.INT
-_ARGS = [_P] * 10 + [_I] * 3 + [ctypes.POINTER(ctypes.c_float)] + [_I] * 2 \
-    + [_P] * 9
+_FPARAMS = ctypes.POINTER(ctypes.c_float)
+_ARGS = [_P] * 10 + [_I] * 3 + [_FPARAMS] + [_I] * 2 + [_P] * 9
+_SCAN_ARGS = [_P] * 9 + [_I] * 2 + [_FPARAMS] + [_I] * 2 + [_P] * 9
 _FLOAT_FIELDS = ("attack_mult", "decay_mult", "fast_decay_mult",
                  "fast_backmult", "onemfast_backmult", "hang_backmult",
                  "onemhang_backmult", "hang_decay_mult", "out_target",
                  "min_volts", "slope_constant", "inv_max_input", "hang_level",
                  "pop_ratio")  # order of AgcP in agc.cu
+
+
+def _fparams(p: AGCParams):
+    return (ctypes.c_float * len(_FLOAT_FIELDS))(
+        *(getattr(p, f) for f in _FLOAT_FIELDS))
 
 
 def agc_block_plain(p: AGCParams, st: AGCState, x: torch.Tensor):
@@ -67,12 +77,10 @@ def _launch(p: AGCParams, st: AGCState, x: torch.Tensor):
     y = torch.empty_like(x)
     outs = [torch.empty(lead, dtype=f32, device=dev) for _ in range(4)] \
         + [torch.empty(lead, dtype=i32, device=dev) for _ in range(3)]
-    fparams = (ctypes.c_float * len(_FLOAT_FIELDS))(
-        *(getattr(p, f) for f in _FLOAT_FIELDS))
     _build.launch(
         "t41x_agc_block", _ARGS, x.data_ptr(), ring.data_ptr(),
         abs_ring.data_ptr(), *(t.data_ptr() for t in fs + ints), c, n, b,
-        fparams, p.hang_counter_init, p.hang_enable, y.data_ptr(),
+        _fparams(p), p.hang_counter_init, p.hang_enable, y.data_ptr(),
         *(t.data_ptr() for t in outs), _build.stream_of(x))
     agc_block.launches += 1
     new_ring = x[..., n - b:].contiguous()
@@ -80,3 +88,52 @@ def _launch(p: AGCParams, st: AGCState, x: torch.Tensor):
 
 
 agc_block.launches = 0  # CUDA kernel launches
+
+
+def agc_scan_plain(p: AGCParams, carry, rm_t: torch.Tensor,
+                   ao_t: torch.Tensor):
+    """The same function in plain torch ops (any device)."""
+    return gain_scan(p, carry, rm_t, ao_t)
+
+
+def agc_scan(p: AGCParams, carry, rm_t: torch.Tensor, ao_t: torch.Tensor):
+    """K5, the gain recurrence alone, for AGC blocks shorter than the
+    delay line (`t41x.kernels.agc_pallas.agc_scan_pallas`).
+
+    carry: 7 (...,) states (4 float32, then 3 int32); rm_t/ao_t: (N, ...)
+    time-major ring-max and |out| streams.  Returns (final carry,
+    volts_seq (N, ...)).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if p.mode == 0:
+        raise ValueError("agc_scan: AGC mode 0 (off) has no recurrence")
+    if not rm_t.is_cuda:
+        return agc_scan_plain(p, carry, rm_t, ao_t)
+    return _scan_launch(p, carry, rm_t, ao_t)
+
+
+def _scan_launch(p: AGCParams, carry, rm_t: torch.Tensor,
+                 ao_t: torch.Tensor):
+    n, lead = rm_t.shape[0], tuple(rm_t.shape[1:])
+    dev = rm_t.device
+    c = math.prod(lead)
+    f32, i32 = torch.float32, torch.int32
+    cin = _build.cuda_input
+    rm = cin("rm_t", rm_t, f32, (n,) + lead, dev)
+    ao = cin("ao_t", ao_t, f32, (n,) + lead, dev)
+    names = ("volts", "save_volts", "fast_backaverage", "hang_backaverage",
+             "hang_counter", "decay_type", "state")
+    ins = [cin(f, s, f32 if i < 4 else i32, lead, dev)
+           for i, (f, s) in enumerate(zip(names, carry))]
+    vseq = torch.empty((n,) + lead, dtype=f32, device=dev)
+    outs = [torch.empty(lead, dtype=f32 if i < 4 else i32, device=dev)
+            for i in range(7)]
+    _build.launch(
+        "t41x_agc_scan", _SCAN_ARGS, rm.data_ptr(), ao.data_ptr(),
+        *(t.data_ptr() for t in ins), c, n, _fparams(p), p.hang_counter_init,
+        p.hang_enable, vseq.data_ptr(), *(t.data_ptr() for t in outs),
+        _build.stream_of(rm))
+    agc_scan.launches += 1
+    return tuple(outs), vseq
+
+
+agc_scan.launches = 0  # CUDA kernel launches

@@ -4,7 +4,8 @@
 JAX) arrays; the port keeps the same fields as tensors.  These helpers
 convert leaf by leaf, so a stream can start in one package and continue
 in the other mid-way.  Every nested state (AGC, SAM, Kim/spectral/LMS NR,
-notch) is rebuilt as the port's NamedTuple of the same field names.
+notch, CW detector, zoom 2^z panadapter) is rebuilt as the port's
+NamedTuple of the same field names.
 Nothing here imports `t41x`: a state going back keeps the port's
 NamedTuple types with NumPy leaves, which `t41x`'s chain reads by field
 name like its own.
@@ -16,13 +17,16 @@ import numpy as np
 import torch
 
 from t41x_torch.chain.rx import ChannelParams, RxState
+from t41x_torch.demod.cw import CWState
 from t41x_torch.demod.sam import SAMState
 from t41x_torch.dsp.agc import AGCState
 from t41x_torch.dsp.nr import KimState, SpectralState, XanrState
+from t41x_torch.dsp.spectrum import ZoomState
 
 # the port's nested state types, by their field names
 _STATE_TYPES = {T._fields: T for T in (AGCState, SAMState, KimState,
-                                       SpectralState, XanrState)}
+                                       SpectralState, XanrState, CWState,
+                                       ZoomState)}
 
 
 def _map(fn, tree, types=None):

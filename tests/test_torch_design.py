@@ -11,16 +11,19 @@ import torch
 
 from t41x import constants as JC
 from t41x.chain import ChainSpec as JSpec, RxChain as JChain
-from t41x.demod import am as jam, sam as jsam
-from t41x.dsp import agc as jagc, firdesign as jfd, iir as jiir, nr as jnr
+from t41x.demod import am as jam, cw as jcw, sam as jsam
+from t41x.dsp import agc as jagc, eq as jeq, firdesign as jfd, iir as jiir
+from t41x.dsp import nb as jnb, nr as jnr, spectrum as jspec
+from t41x.kernels import frontend_pallas as jfp
 from t41x.kernels.frontend_pallas import FusedFrontEnd as JFront
 from t41x.kernels.interp_pallas import FusedInterp as JInterp
 from t41x.utils import windows as jw
 from t41x_torch import constants as TC
 from t41x_torch.chain import ChainSpec, RxChain
-from t41x_torch.demod import am as tam, sam as tsam
-from t41x_torch.dsp import agc as tagc, firdesign as tfd, iir as tiir
-from t41x_torch.dsp import nr as tnr
+from t41x_torch.demod import am as tam, cw as tcw, sam as tsam
+from t41x_torch.dsp import agc as tagc, chunk_ops as tco, eq as teq
+from t41x_torch.dsp import firdesign as tfd, iir as tiir, nb as tnb
+from t41x_torch.dsp import nr as tnr, spectrum as tspec
 from t41x_torch.kernels.frontend import FusedFrontEnd as TFront
 from t41x_torch.kernels.interp import FusedInterp as TInterp
 from t41x_torch.utils import windows as tw
@@ -195,6 +198,114 @@ def test_kernel_operators_equal():
     ji, ti = JInterp(chain.hi1, chain.hi2), TInterp(chain.hi1, chain.hi2)
     EQ(ti.hp1, ji.hp1)
     EQ(ti.hp2, ji.hp2)
+
+
+@pytest.mark.parametrize("zoom", range(1, 8))
+def test_zoom_designs_equal(zoom):
+    """The zoom 2^z tap: anti-alias IIR, decimator taps, display
+    multiplier, the per-stage operators, the composed chunk operators
+    of K1's zoom variant, and the ZoomState layout."""
+    EQ(tfd.zoom_antialias_iir(zoom), jfd.zoom_antialias_iir(zoom))
+    t, j = tspec.ZoomFFT(zoom), jspec.ZoomFFT(zoom)
+    for f in ("h", "iir_b", "iir_a"):
+        assert getattr(t, f).dtype == getattr(j, f).dtype, f
+        EQ(getattr(t, f), getattr(j, f), err_msg=f)
+    assert (t.factor, t.multiplier) == (j.factor, j.multiplier)
+    for f in ("R", "L", "AK", "G", "b0"):
+        EQ(getattr(t.iir_op, f), getattr(j.iir_op, f), err_msg=f)
+    chain = JChain(JSpec())
+    args = (chain.h1, chain.h2, chain.dc_b[0], chain.dc_a[0])
+    kw = dict(zoom=zoom, zoom_sos=(j.iir_b, j.iir_a), zoom_h=j.h)
+    tf, jf = TFront(*args, **kw), JFront(*args, **kw)
+    EQ(tf.Wy, jf.Wy)
+    EQ(tf.Ws, jf.Ws)
+    assert (tf.z_states, tf.z_stages, tf.zt, tf.zfactor) \
+        == (jf.z_states, jf.z_stages, jf.zt, jf.zfactor)
+    ts, js = t.init_state((3,)), j.init_state((3,))
+    assert ts._fields == js._fields
+    for a, b in zip(ts, js):
+        assert a.numpy().dtype == b.dtype
+        EQ(a.numpy(), b)
+
+
+def test_chunk_ops_equal():
+    """dsp.chunk_ops against frontend_pallas's design functions, on the
+    EQ's band cascades, the CW filter and the zoom taps."""
+    eb, ea = jeq.design_eq_bands()
+    sos = jfd.cw_audio_lpf(840.0)
+    for b, a, K in ((eb[0], ea[0], 32), (eb[13], ea[13], 32),
+                    (sos[:, :3], sos[:, 3:], 64)):
+        for x, y in zip(tco.compose_cascade_ops(b, a, K),
+                        jfp._compose_cascade_ops(b, a, K)):
+            EQ(x, y)
+    s1 = jiir.stage_normal_form(eb[2][0], ea[2][0])
+    s2 = jiir.stage_normal_form(eb[2][1], ea[2][1])
+    for x, y in zip(tco.compose_systems(s1, s2),
+                    jfp._compose_systems(s1, s2)):
+        EQ(x, y)
+    for zoom in (1, 4):
+        z = jspec.ZoomFFT(zoom)
+        for x, y in zip(tco.zoom_chunk_ops(z.iir_b, z.iir_a, z.h,
+                                           z.factor, 128),
+                        jfp._zoom_chunk_ops(z.iir_b, z.iir_a, z.h,
+                                            z.factor, 128)):
+            EQ(x, y)
+
+
+def test_eq_cw_nb_designs_equal():
+    EQ(teq.band_centers(), jeq.band_centers())
+    for rate in (24000.0, 48000.0):
+        for a, b in zip(teq.design_eq_bands(rate), jeq.design_eq_bands(rate)):
+            assert a.dtype == b.dtype
+            EQ(a, b)
+    te, je = teq.EQDesign(), jeq.EQDesign()
+    assert (te.stages, te.chunk, teq.NUM_BANDS) \
+        == (je.stages, je.chunk, jeq.NUM_BANDS)
+    EQ(te.Wy, je.Wy)
+    EQ(te.Ws, je.Ws)
+    EQ(te.init_state((2,)).numpy(), je.init_state((2,)))
+    assert tfd.CW_FILTER_FC_HZ == jfd.CW_FILTER_FC_HZ
+    for fc in tfd.CW_FILTER_FC_HZ:
+        EQ(tfd.cw_audio_lpf(fc), jfd.cw_audio_lpf(fc))
+    for tone in (750.0, 600.0):
+        td, jd = tcw.CWDetector(tone), jcw.CWDetector(tone)
+        for f in ("h", "ref", "goertzel_cos", "goertzel_sin",
+                  "corr_matrix"):
+            assert getattr(td, f).dtype == getattr(jd, f).dtype, f
+            EQ(getattr(td, f), getattr(jd, f), err_msg=f)
+        ts, js = td.init_state((3,)), jd.init_state((3,))
+        assert ts._fields == js._fields
+        for a, b in zip(ts, js):
+            assert a.numpy().dtype == b.dtype
+            EQ(a.numpy(), b)
+    assert (tcw.TONE_HZ, tcw.BLOCK, tcw.THRESHOLD) \
+        == (jcw.TONE_HZ, jcw.BLOCK, jcw.THRESHOLD)
+    assert (tnb.ORDER, tnb.IMPULSE_LEN, tnb.PL, tnb.NB_THRESH) \
+        == (jnb.ORDER, jnb.IMPULSE_LEN, jnb.PL, jnb.NB_THRESH)
+
+
+@pytest.mark.parametrize("index", range(5))
+def test_cw_chain_designs_equal(index):
+    kw = dict(mode="cw", cw_filter_index=index, eq_on=True)
+    j, t = JChain(JSpec(**kw)), RxChain(ChainSpec(**kw))
+    for name in ("cw_lp_b", "cw_lp_a"):
+        a, b = getattr(t, name), getattr(j, name)
+        assert a.dtype == b.dtype, name
+        EQ(a, b, err_msg=name)
+    for f in ("R", "L", "AK", "G", "b0"):
+        EQ(getattr(t.cw_lp_op, f), getattr(j.cw_lp_op, f), err_msg=f)
+    # every state field in t41x's layout (the CW, CW filter and EQ ones)
+    for a, b in zip(t.init_state((2,)), j.init_state((2,))):
+        ta, tb = _leaves(a), _leaves(b)
+        assert len(ta) == len(tb)
+        for x, y in zip(ta, tb):
+            assert x.shape == y.shape and x.numpy().dtype == y.dtype
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def test_port_never_imports_jax():

@@ -3,8 +3,10 @@
 On the CPU each wrapper takes its plain torch version; those are held
 against the JAX Pallas wrappers run in interpret mode (their default on
 CPU), over 3 streamed blocks with state carried, at 5 channels and at
-130 (not a multiple of any tile).  The `gpu` cases hold each CUDA
-kernel against its plain version on the card and skip without one.
+130 (not a multiple of any tile); tests/test_torch_kernels_zoom_agc.py
+does the same for K1's zoom variant and K5.  The `gpu` cases hold each
+CUDA kernel, those two included, against its plain version on the card
+and skip without one.
 """
 
 import types
@@ -17,6 +19,7 @@ from t41x_torch.chain import ChainSpec, RxChain
 from t41x_torch.chain import default_params as tparams
 from t41x_torch.demod import sam as tsam
 from t41x_torch.dsp import agc as tagc, nr as tnr, osfilter as tosf
+from t41x_torch.dsp.spectrum import ZoomFFT
 from t41x_torch.kernels import _build
 from t41x_torch.kernels import agc as tk_agc
 from t41x_torch.kernels import nr_gain as tk_nr
@@ -96,7 +99,38 @@ def _state_close(got, ref, msg=""):
 
 
 def _front(cls, zoom):
-    return cls(CHAIN.h1, CHAIN.h2, CHAIN.dc_b[0], CHAIN.dc_a[0], zoom=zoom)
+    kw = {}
+    if zoom is not None and zoom >= 1:
+        z = ZoomFFT(zoom)  # designs pinned equal to t41x's
+        kw = dict(zoom_sos=(z.iir_b, z.iir_a), zoom_h=z.h)
+    return cls(CHAIN.h1, CHAIN.h2, CHAIN.dc_b[0], CHAIN.dc_a[0], zoom=zoom,
+               **kw)
+
+
+def _zoom_state(zoom, ch, device=None):
+    """(iir, dec) of a fresh ZoomState."""
+    st = ZoomFFT(zoom).init_state((ch,), device)
+    return st.iir, st.dec
+
+
+def _agc_stream(rng, ch, n, blocks):
+    """K5's inputs for `blocks` pieces of n samples at K2's stimulus
+    levels: the AGC params, a fresh carry and, per piece, the time-major
+    ring-max and |out| streams as agc_apply forms them."""
+    p = tagc.agc_params(2)
+    st = tagc.agc_state(p, (ch,))
+    pieces = []
+    for b in range(blocks):
+        x = T(_cx(rng, ch, n, scale=(0.02, 0.5, 0.005, 0.1)[b % 4]))
+        full = torch.cat([st.ring, x], dim=-1)
+        abs_full = torch.cat([st.abs_ring, x.abs()], dim=-1)
+        rm = tagc._sliding_window_max(abs_full, p.attack_buffsize)[
+            ..., 1: 1 + n]
+        pieces.append((rm.T.contiguous(), abs_full[..., :n].T.contiguous()))
+        st = st._replace(ring=full[..., n:], abs_ring=abs_full[..., n:])
+    carry = (st.volts, st.save_volts, st.fast_backaverage,
+             st.hang_backaverage, st.hang_counter, st.decay_type, st.state)
+    return p, carry, pieces
 
 
 def _sam_y(rng, ch, b):
@@ -263,15 +297,20 @@ def test_kim_gains_plain_matches_pallas(jx, ch):
 def test_wrappers_take_plain_version_on_cpu():
     """CPU tensors never reach the CUDA library: no build, no launch."""
     counts = (TFront.launches, tk_agc.agc_block.launches,
+              tk_agc.agc_scan.launches,
               TInterp.launches, tk_os.os_filter_matmul_kernel.launches,
               tk_sam.sam_block.launches, tk_xanr.xanr_block.launches,
               tk_nr.kim_gains.launches)
     rng = np.random.default_rng(25)
-    tf = _front(TFront, 0)
     tp = _params(2)
-    tf.block(tp, tf.init_state((2,)), T(_cx(rng, 2, 2048)))
+    for zoom in (0, 2):
+        tf = _front(TFront, zoom)
+        tf.block(tp, tf.init_state((2,)), T(_cx(rng, 2, 2048)),
+                 _zoom_state(zoom, 2) if zoom else None)
     p = tagc.agc_params(2)
     tk_agc.agc_block(p, tagc.agc_state(p, (2,)), T(_cx(rng, 2, 256)))
+    tagc.agc_apply(p, tagc.agc_state(p, (2,)), T(_cx(rng, 2, 64)),
+                   use_kernels=True)
     tfi = TInterp(CHAIN.hi1, CHAIN.hi2)
     tfi.apply(torch.zeros(2, 256), torch.zeros(2, tfi.sub1 - 1),
               torch.zeros(2, tfi.sub2 - 1), torch.ones(2))
@@ -285,7 +324,7 @@ def test_wrappers_take_plain_version_on_cpu():
     tk_nr.kim_gains(tnr.kim_params(), (ks.X, ks.E, ks.Gts, ks.idx),
                     torch.ones(2, 2, 128))
     assert counts == (TFront.launches, tk_agc.agc_block.launches,
-                      TInterp.launches, tk_os.os_filter_matmul_kernel.launches,
+                      tk_agc.agc_scan.launches, TInterp.launches, tk_os.os_filter_matmul_kernel.launches,
                       tk_sam.sam_block.launches, tk_xanr.xanr_block.launches,
                       tk_nr.kim_gains.launches)
     assert _build._lib is None
@@ -324,6 +363,49 @@ def test_frontend_kernel_matches_plain_on_card(cuda, zoom, fmt):
             _close(ok[2], op[2].cpu(), 2e-4, 2e-5, "seg")
         _state_close([s.cpu() for s in sk], [s.cpu() for s in sp])
     assert TFront.launches == n0 + BLOCKS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["c64", "q15"])
+@pytest.mark.parametrize("zoom", [1, 3, 7])
+def test_frontend_zoom_kernel_matches_plain_on_card(cuda, zoom, fmt):
+    """K1z: the composed zoom tap in the kernel against the per-stage
+    plain version, state carried over the blocks."""
+    rng = np.random.default_rng(38)
+    ch = 130
+    tf = _front(TFront, zoom)
+    tp = _params(ch, cuda)
+    sk = sp = tf.init_state((ch,), cuda)
+    zk = zp = _zoom_state(zoom, ch, cuda)
+    n0 = TFront.launches
+    for _ in range(BLOCKS):
+        x = _cx(rng, ch, 2048, scale=0.3)
+        tx = (tuple(T(a).to(cuda) for a in _q15(x)) if fmt == "q15"
+              else T(x).to(cuda))
+        ok, op = tf.block(tp, sk, tx, zk), tf.plain(tp, sp, tx, zp)
+        sk, sp, zk, zp = ok[0], op[0], ok[3:], op[3:]
+        _close(ok[1], op[1].cpu(), 2e-4, 2e-5, "x")
+        _state_close(ok[2].cpu(), op[2].cpu(), "zoom stream")
+        _state_close([s.cpu() for s in sk], [s.cpu() for s in sp])
+        _state_close([s.cpu() for s in zk], [s.cpu() for s in zp],
+                     "zoom state")
+    assert TFront.launches == n0 + BLOCKS
+
+
+@pytest.mark.gpu
+def test_agc_scan_kernel_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(39)
+    p, carry, pieces = _agc_stream(rng, 130, 64, 4)
+    ck = cp = tuple(c.to(cuda) for c in carry)
+    n0 = tk_agc.agc_scan.launches
+    for rm, ao in pieces:
+        rm, ao = rm.to(cuda), ao.to(cuda)
+        ck, vk = tk_agc.agc_scan(p, ck, rm, ao)
+        cp, vp = tk_agc.agc_scan_plain(p, cp, rm, ao)
+        _close(vk, vp.cpu(), 1e-6, 1e-7, "volts")
+        for a, r in zip(ck, cp):
+            _close(a, r.cpu(), 1e-6, 1e-7, "carry")
+    assert tk_agc.agc_scan.launches == n0 + len(pieces)
 
 
 @pytest.mark.gpu

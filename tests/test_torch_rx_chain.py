@@ -144,15 +144,6 @@ def test_state_moves_between_t41x_and_port_mid_stream():
     _assert_state_close(mix, ref)
 
 
-def test_unported_options_raise():
-    for kw, item in ((dict(mode="cw"), "item 11"),
-                     (dict(nb_on=True), "item 11"),
-                     (dict(eq_on=True), "item 11"),
-                     (dict(spectrum_zoom=2), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            RxChain(ChainSpec(**kw))
-
-
 def test_run_streams_a_capture():
     ch, blocks = 3, 2
     tc = RxChain(ChainSpec(**SPECS["rx"]))
