@@ -2,6 +2,12 @@
 """Drive t41x_torch's receive chain on one CUDA card and check it.
 
     python3 chip_smoke.py        (from the repository root; needs a card)
+    python3 chip_smoke.py --kernels ROOT
+
+The second form runs phases 1 and 2 alone on the `t41x_torch` package
+in ROOT (another checkout, e.g. a parent commit unpacked with `git
+archive`) and prints the kernels' JSON line and the card's line;
+`kernel_ab.py` runs it for several checkouts in turns.
 
 Phases, each of which raises on failure (so no result line follows a
 failure):
@@ -13,9 +19,17 @@ failure):
    zoom 2^z variant K1z (zoom 1, 3, 7 complex64, zoom 1 q15), K2 the
    AGC block, K3 the output interpolation, K4 the overlap-save matmul,
    K5 the AGC recurrence of 64-sample blocks, K6 the SAM PLL, K7 the LMS
-   in NR and notch form, K8 the Kim NR gains; and time kernel and plain
-   version (CUDA events, median of 25 runs after warm-up, 5 for the
-   plain versions of the per-sample recurrences);
+   in NR and notch form, K8 the Kim NR gains; and time each: its device
+   time per launch (torch.profiler, 20 launches after 3 warm-up, L2
+   flushed before each, so that its inputs come from device memory), its
+   wrapper and its plain version (CUDA events, median of 25 runs after
+   warm-up, 5 for the plain versions of the per-sample recurrences), the
+   plain version's device time for K1 and K4, and for K4 the one PyTorch
+   call that computes the same function (the cuBLAS product on the
+   concatenated input; no other kernel has one).  Each kernel's bound is
+   the larger of the operations its function needs over the card's fp32
+   peak (67 TFLOP/s) and its bytes (each input read once, each output
+   written once) over its memory rate (3.35 TB/s);
 3. drive the main paths — `RxChain.block` with `use_kernels=True` — at
    1024 channels x 12 blocks (8 for the slice-1 and -2 waveform specs):
    the flagship spec (usb, zoom-x1 panadapter, audio-spectrum taps, x8
@@ -34,11 +48,14 @@ failure):
    finite values of the expected shapes;
 4. time the chain with kernels and with plain versions (complex input
    samples per second): the rx spec at 1024 and 4096 channels, the
-   radio's default spec, sam and Kim and LMS NR at 1024; then, for the
-   same five specs at 1024 channels, the device time per block of each
-   CUDA kernel under `torch.profiler`.
+   headless spec, the radio's default spec, sam and Kim and LMS NR at
+   1024; then, for the same six specs at 1024 channels, the device time
+   per block of each CUDA kernel under `torch.profiler`.
 
-It prints the kernels' JSON line, the card's name and power limit as
+It prints the kernels' JSON line (per kernel: its launches and launches
+per block on the main paths, max |err|, device ms a launch, the
+wrapper's, the plain version's and the library call's times, its flops,
+bytes and bound), the card's name and power limit as
 `nvidia-smi` gives them, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a card, or outside the repository, it exits non-zero.
@@ -50,6 +67,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -122,11 +140,153 @@ SPECS = {
 SHORT_SPECS = ("rx", "rx_q15", "headless", "headless_q15", "am", "nfm",
                "nfm_headless", "nr_kim", "nr_spectral", "ft8", "psk31")
 # the specs phase 4 times and profiles
-TIMED = ("rx", "radio_default", "sam", "nr_kim", "nr_lms")
+TIMED = ("rx", "headless", "radio_default", "sam", "nr_kim", "nr_lms")
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): fp32
+# outside the tensor cores, and HBM3
+PEAK_FP32 = 67e12   # flop/s
+PEAK_HBM = 3.35e12  # bytes/s
+
+# the kernels' names in the profiler, by row prefix
+KERNEL_NAMES = {"K1": "frontend_kernel", "K2": "agc_kernel",
+                "K3": "interp_kernel", "K4": "os_filter_kernel",
+                "K5": "agc_scan_kernel", "K6": "sam_kernel",
+                "K7": "xanr_kernel", "K8": "kim_gain_kernel"}
+
+
+def k1_flops(n_ch: int, zoom=None, n: int = 2048, t1: int = 28,
+             t2: int = 46, zoom_stages: int = 4, zoom_taps: int = 4) -> dict:
+    """fp32 operations the fused front end's function needs per block (K1,
+    K1z with zoom >= 1), by part; an FMA counts 2.  These are the
+    operations of the sample-by-sample recurrences and filters, not of
+    the kernel's chunk-parallel form (whose DC particular solution alone,
+    a 127-tap convolution, does ~13 times the biquad's work).  `sincosf`
+    is not counted."""
+    parts = {
+        "gain_iq_correction": n * (2 + 3),
+        # the DC-block biquad: 5 FMAs a sample, I and Q
+        "dc_biquad": n * 2 * 5 * 2,
+        # nco_gain scaling (2) and the complex rotation (6) per sample
+        "nco": n * 8,
+        "decimate_x4": (n // 4) * t1 * 2 * 2,
+        "decimate_x2": (n // 8) * t2 * 2 * 2,
+    }
+    if zoom is not None and zoom >= 1:
+        # the anti-alias IIR (biquad sections at the RF rate) and the
+        # FIR decimator's outputs, I and Q
+        parts["zoom_iir"] = n * 2 * zoom_stages * 5 * 2
+        parts["zoom_fir"] = (n >> zoom) * zoom_taps * 2 * 2
+    return {k: v * n_ch for k, v in parts.items()}
+
+
+def k4_flops(n_ch: int, half: int = 256) -> int:
+    """fp32 operations of y = [h | x] @ W.T: 4 real FMAs per complex
+    multiply-add, (C, half) x (half, 2 half)."""
+    return 8 * n_ch * half * 2 * half
+
+
+def k3_flops(n_ch: int, n: int = 256, t1: int = 48, t2: int = 32) -> int:
+    """fp32 operations of the x2 then x4 polyphase interpolation and the
+    volume: t/L taps per output of an L-fold stage, an FMA counts 2."""
+    return n_ch * (2 * (2 * n * (t1 // 2) + 8 * n * (t2 // 4)) + 8 * n)
+
+
+# per-element operation counts of the other kernels, from their plain
+# versions' arithmetic (their bound is their bytes by a wide margin)
+OPS_PER_ELEMENT = {
+    "K2": 40,      # per complex sample: |x|, ring max, the gain step
+    "K5": 30,      # per sample: the gain step alone
+    "K6": 60,      # per sample: mix, atan series (15 FMAs), loop filter
+    "K7": 4 * 64 + 16,  # per sample: 64-tap prediction and update
+    "K8": 40,      # per bin and hop: minimum statistics, Wiener rule
+}
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the fp32 peak and the bytes (each input read once, each output
+    written once) over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_HBM
+    by_ops = t_ops >= t_bytes
+    return dict(flops=float(flops), bytes=float(nbytes),
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if by_ops else "bytes")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the card's 50 MB L2
+PROFILER_TRIES = 5
+_flush = {}  # the flush buffer, and the profiler's names of its kernels
+
+
+def kernel_us(body, n: int, check=None):
+    """Each CUDA kernel `body` launches, by name: (device µs a launch,
+    launches a call), over `n` calls under torch.profiler; and the
+    seconds the calls took on the host clock, up to the card's end of
+    them.  The profiler can miss a session's first kernels, or deliver a
+    session's kernels into the next one: so a kernel's time is its mean
+    over the launches the session holds, its launches a call the whole
+    number m nearest its count over `n`, and a session in which a count
+    lies more than a tenth of max(m, 1) n from m n, or that fails
+    `check`, is run again.  Counts below n/10 are strays of an earlier
+    session."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                body()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {ev.key: ev.count for ev in evs}
+        per = {ev.key: (ev.device_time_total / ev.count,
+                        round(ev.count / n))
+               for ev in evs if round(ev.count / n) >= 1}
+        if per and all(abs(c - round(c / n) * n) <= max(round(c / n), 1)
+                       * n / 10 for c in counts.values()) and (
+                check is None or check(per)):
+            return per, wall
+    raise RuntimeError(f"kernel_us: no whole profile in {PROFILER_TRIES} "
+                       f"sessions of {n} calls; kernel counts {counts}")
+
+
+def device_us(fn, match=None, reps: int = 20) -> float:
+    """Device time per call of the CUDA kernels `fn` launches whose name
+    holds `match` (all of them when None): `reps` calls after 3 warm-up
+    calls, with L2 flushed before each, so that what `fn` reads comes
+    from device memory as its bound assumes, not from the last call.
+    The flush reads a buffer five times L2's size (its max), so it
+    leaves no dirty line for `fn` to write back."""
+    import torch
+    if not _flush:
+        buf = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        _flush["flush"] = buf.max
+        _flush["keys"] = set(kernel_us(buf.max, reps)[0])
+    flush, keys = _flush["flush"], _flush["keys"]
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+
+    def flushed():
+        flush()
+        fn()
+
+    def whole(per):
+        # the flush's kernels once a call (twice would be `fn` launching
+        # one of them too), and a kernel of `fn`'s own that holds `match`
+        return all(per.get(k, (0, 0))[1] == 1 for k in keys) and any(
+            k not in keys and (match is None or match in k) for k in per)
+
+    per, _ = kernel_us(flushed, reps, whole)
+    return sum(us * m for k, (us, m) in per.items()
+               if k not in keys and (match is None or match in k))
 
 
 def card_line() -> str:
@@ -139,9 +299,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
+    root = None  # --kernels ROOT: phases 1 and 2 on ROOT's t41x_torch
+    if len(argv) == 2 and argv[0] == "--kernels":
+        root = Path(argv[1]).resolve()
+        sys.path.insert(0, str(root))
+    elif argv:
+        print(__doc__, file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 2
@@ -163,6 +330,12 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: t41x_torch is not importable ({e}); run it "
               "from the repository root", file=sys.stderr)
+        return 2
+    import t41x_torch
+    if root is not None and not Path(t41x_torch.__file__).resolve(
+            ).is_relative_to(root):
+        print(f"chip_smoke: imported {t41x_torch.__file__}, not the one "
+              f"in {root}", file=sys.stderr)
         return 2
 
     dev = torch.device("cuda", 0)
@@ -264,15 +437,38 @@ def main() -> int:
             scale = float(b.abs().max()) if b.numel() else 0.0
             close(f"{name} state[{i}]", a, b, 2e-3, max(5e-4, 1e-3 * scale))
 
+    def nbytes(*trees):
+        return sum(t.numel() * t.element_size() for tree in trees
+                   for t in leaves(tree) if isinstance(t, torch.Tensor))
+
     rows = []
 
-    def row(name, src, ms, plain_ms, err, tol):
+    def row(name, src, fn_k, fn_p, err, tol, flops, ins, outs,
+            plain_reps=REPS, plain_device=False, library=None):
+        """One kernel's line: its device time (profiler), the wrapper's
+        and the plain version's times (CUDA events), its bound from
+        `flops` and the bytes of `ins` and `outs`, and the library
+        call's device time where one PyTorch call computes the same."""
+        dev_us = device_us(fn_k, KERNEL_NAMES[name[:2]])
+        wrapper_ms = time_ms(fn_k)
+        plain_ms = time_ms(fn_p, plain_reps)
+        plain_dev = device_us(fn_p) / 1e3 if plain_device else None
+        lib_ms = device_us(library) / 1e3 if library is not None else None
+        b = bound(flops, nbytes(ins, outs))
         rows.append(dict(name=name, route="cuda", source=src[0],
-                         replaces=src[1], launches=0, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms))
+                         replaces=src[1], launches=0, blocks=0,
+                         max_abs_err=err, ms=dev_us / 1e3,
+                         wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         plain_device_ms=plain_dev, library_ms=lib_ms, **b))
         log(f"# {name}: max |err| {err:.3g} within rtol {tol[0]}, atol "
-            f"{tol[1]}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
-            f"call ({N_CH} channels, {card})")
+            f"{tol[1]}; device {dev_us:.2f} us a launch, bound "
+            f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}; {b['flops']:.4g} "
+            f"flop, {b['bytes']:.4g} B); wrapper {wrapper_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms"
+            + (f" ({plain_dev * 1e3:.2f} us on the device)"
+               if plain_dev is not None else "")
+            + (f", library call {lib_ms * 1e3:.2f} us" if lib_ms else "")
+            + f" per call ({N_CH} channels, {card})")
 
     # ---- 2. each kernel against its plain version -------------------------
     rx = RxChain(ChainSpec(use_kernels=True, spectrum_zoom=0), device=dev)
@@ -295,8 +491,9 @@ def main() -> int:
                 state_close("K1", st_k, st_p)
             iq = q15(blocks[0]) if fmt == "q15" else blocks[0]
             row(f"K1 frontend zoom={zoom} {fmt}", K1,
-                time_ms(lambda: fe.block(p, st_k, iq)),
-                time_ms(lambda: fe.plain(p, st_k, iq)), err, (2e-4, 2e-5))
+                lambda: fe.block(p, st_k, iq), lambda: fe.plain(p, st_k, iq),
+                err, (2e-4, 2e-5), sum(k1_flops(N_CH, zoom).values()),
+                (iq, st_k, p[:5]), fe.block(p, st_k, iq), plain_device=True)
 
     # K1z: the zoom 2^z tap in the kernel (composed operator) against the
     # per-stage plain version; the 24 kHz output at K1's bounds, the
@@ -321,8 +518,12 @@ def main() -> int:
             state_close("K1z zoom state", z_k, z_p)
         iq = q15(blocks[0]) if fmt == "q15" else blocks[0]
         row(f"K1 frontend zoom={zoom} {fmt}", K1,
-            time_ms(lambda: fe.block(p, st_k, iq, z_k)),
-            time_ms(lambda: fe.plain(p, st_k, iq, z_k)), err, (2e-4, 2e-5))
+            lambda: fe.block(p, st_k, iq, z_k),
+            lambda: fe.plain(p, st_k, iq, z_k), err, (2e-4, 2e-5),
+            sum(k1_flops(N_CH, zoom, zoom_stages=zf.iir_b.shape[0],
+                         zoom_taps=len(zf.h)).values()),
+            (iq, st_k, p[:5], z_k),
+            fe.block(p, st_k, iq, z_k), plain_device=True)
 
     ap = agc_mod.agc_params(2)
     st_k = st_p = agc_mod.agc_state(ap, (N_CH,), dev)
@@ -334,9 +535,10 @@ def main() -> int:
         err = max(err, close("K2 y", y_k, y_p, 1e-6, 1e-7))
         for f in st_p._fields:
             close(f"K2 {f}", getattr(st_k, f), getattr(st_p, f), 1e-6, 1e-7)
-    row("K2 agc_block", K2, time_ms(lambda: kagc.agc_block(ap, st_k, x)),
-        time_ms(lambda: kagc.agc_block_plain(ap, st_k, x), REPS_PLAIN), err,
-        (1e-6, 1e-7))
+    row("K2 agc_block", K2, lambda: kagc.agc_block(ap, st_k, x),
+        lambda: kagc.agc_block_plain(ap, st_k, x), err, (1e-6, 1e-7),
+        OPS_PER_ELEMENT["K2"] * x.numel(), (x, st_k),
+        kagc.agc_block(ap, st_k, x), plain_reps=REPS_PLAIN)
 
     # K5: the recurrence alone over 64-sample pieces at K2's levels, its
     # ring-max and |out| streams formed as agc_apply forms them
@@ -359,10 +561,10 @@ def main() -> int:
         err = max(err, close("K5 volts", v_k, v_p, 1e-6, 1e-7))
         for i, (a, r) in enumerate(zip(c_k, c_p)):
             close(f"K5 carry[{i}]", a, r, 1e-6, 1e-7)
-    row("K5 agc_scan", K5, time_ms(lambda: kagc.agc_scan(ap, c_k, rm, ao)),
-        time_ms(lambda: kagc.agc_scan_plain(ap, c_k, rm, ao), REPS_PLAIN),
-        err,
-        (1e-6, 1e-7))
+    row("K5 agc_scan", K5, lambda: kagc.agc_scan(ap, c_k, rm, ao),
+        lambda: kagc.agc_scan_plain(ap, c_k, rm, ao), err, (1e-6, 1e-7),
+        OPS_PER_ELEMENT["K5"] * rm.numel(), (c_k, rm, ao),
+        kagc.agc_scan(ap, c_k, rm, ao), plain_reps=REPS_PLAIN)
 
     fi = kint.FusedInterp(rx.hi1, rx.hi2)
     vol = torch.linspace(0.5, 2.0, N_CH, device=dev)
@@ -376,22 +578,32 @@ def main() -> int:
         err = max(err, close("K3 y", y_k, y_p, 2e-5, 2e-6))
         close("K3 int1", hk[0], hp[0], 1e-6, 1e-7)
         close("K3 int2", hk[1], hp[1], 2e-5, 2e-6)
-    row("K3 interp", K3, time_ms(lambda: fi.apply(a, *hk, vol)),
-        time_ms(lambda: fi.plain(a, *hk, vol)), err, (2e-5, 2e-6))
+    row("K3 interp", K3, lambda: fi.apply(a, *hk, vol),
+        lambda: fi.plain(a, *hk, vol), err, (2e-5, 2e-6),
+        k3_flops(N_CH, C.AUDIO_BLOCK, len(rx.hi1), len(rx.hi2)),
+        (a, hk, vol), fi.apply(a, *hk, vol))
 
     W = rx.tensors["os_W"]
+    # W's planes, packed once by the chain (a tree whose wrapper packs W
+    # itself has none)
+    wp = (rx.tensors["os_Wp"],) if "os_Wp" in rx.tensors else ()
     s_k = s_p = torch.zeros(N_CH, C.FFT_LENGTH // 2, dtype=torch.complex64,
                             device=dev)
     err = 0.0
     for b in range(3):
         x = cnoise(N_CH, C.FFT_LENGTH // 2, scale=0.3)
-        s_k, y_k = kos.os_filter_matmul_kernel(s_k, x, W)
+        s_k, y_k = kos.os_filter_matmul_kernel(s_k, x, W, *wp)
         s_p, y_p = kos.os_filter_matmul(s_p, x, W)
         err = max(err, close("K4 y", y_k, y_p, 2e-3, 2e-4))
         close("K4 state", s_k, s_p, 0.0, 0.0)
+    # the library call: one cuBLAS product on the concatenated input
+    xw = torch.cat([s_k, x], dim=-1)
     row("K4 os_filter", K4,
-        time_ms(lambda: kos.os_filter_matmul_kernel(s_k, x, W)),
-        time_ms(lambda: kos.os_filter_matmul(s_k, x, W)), err, (2e-3, 2e-4))
+        lambda: kos.os_filter_matmul_kernel(s_k, x, W, *wp),
+        lambda: kos.os_filter_matmul(s_k, x, W), err, (2e-3, 2e-4),
+        k4_flops(N_CH, C.FFT_LENGTH // 2), (s_k, x, W),
+        kos.os_filter_matmul_kernel(s_k, x, W, *wp)[1], plain_device=True,
+        library=lambda: xw @ W.T)
 
     # K6: a 120 Hz carrier, AM at 400 Hz, a level per channel, light
     # noise (tests/test_pallas_kernels.py's SAM stimulus).  Every
@@ -411,9 +623,10 @@ def main() -> int:
         err = max(err, close("K6 audio", a_k, a_p, 1e-4, 1e-5))
         for f in st_p._fields:
             close(f"K6 {f}", getattr(st_k, f), getattr(st_p, f), 1e-4, 1e-5)
-    row("K6 sam_block", K6, time_ms(lambda: ksam.sam_block(sp, st_k, y)),
-        time_ms(lambda: ksam.sam_block_plain(sp, st_k, y), REPS_PLAIN), err,
-        (1e-4, 1e-5))
+    row("K6 sam_block", K6, lambda: ksam.sam_block(sp, st_k, y),
+        lambda: ksam.sam_block_plain(sp, st_k, y), err, (1e-4, 1e-5),
+        OPS_PER_ELEMENT["K6"] * y.numel(), (y, st_k),
+        ksam.sam_block(sp, st_k, y), plain_reps=REPS_PLAIN)
 
     # K7: noise at the level of the chain's audio; leak indices at the
     # two fixed points of the reference's lidx quirk (120: clamped at the
@@ -437,10 +650,10 @@ def main() -> int:
                 close(f"K7 {f}", getattr(st_k, f), getattr(st_p, f), 1e-4,
                       1e-5)
         row(f"K7 xanr {'notch' if notch else 'nr'}", K7,
-            time_ms(lambda: kxanr.xanr_block(xp, st_k, x)),
-            time_ms(lambda: kxanr.xanr_block_plain(xp, st_k, x), REPS_PLAIN),
-            err,
-            (1e-4, 1e-5))
+            lambda: kxanr.xanr_block(xp, st_k, x),
+            lambda: kxanr.xanr_block_plain(xp, st_k, x), err, (1e-4, 1e-5),
+            OPS_PER_ELEMENT["K7"] * x.numel(), (x, st_k),
+            kxanr.xanr_block(xp, st_k, x), plain_reps=REPS_PLAIN)
 
     # K8: two hops a block, bin powers whose level changes from block to
     # block so the minimum statistics and the psi rule both move.
@@ -457,8 +670,17 @@ def main() -> int:
         err = max(err, close("K8 gains", y_k, y_p, 0.0, 0.0))
         for i, (a, r) in enumerate(zip(g_k, g_p)):
             close(f"K8 state[{i}]", a, r, 0.0, 0.0)
-    row("K8 kim_gains", K8, time_ms(lambda: knr.kim_gains(kp, g_k, pw)),
-        time_ms(lambda: knr.kim_gains_plain(kp, g_k, pw)), err, (0.0, 0.0))
+    row("K8 kim_gains", K8, lambda: knr.kim_gains(kp, g_k, pw),
+        lambda: knr.kim_gains_plain(kp, g_k, pw), err, (0.0, 0.0),
+        OPS_PER_ELEMENT["K8"] * pw.numel(), (pw, g_k),
+        knr.kim_gains(kp, g_k, pw))
+
+    if root is not None:
+        for r in rows:
+            del r["blocks"]
+        print(json.dumps({"kernels": rows}))
+        print(card)
+        return 0
 
     # ---- 3. the main path, through the kernels ----------------------------
     counters = {"K1": (kfe.FusedFrontEnd, "launches"),
@@ -477,12 +699,14 @@ def main() -> int:
     def read_counts():
         return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
 
-    def feed(counts, fed):
-        """Add a path's launches to the rows of the variants it ran."""
+    def feed(counts, fed, n_blocks):
+        """Add a path's launches, and the blocks it ran, to the rows of
+        the variants it ran."""
         for r in rows:
             k = r["name"][:2]
-            if fed.get(k, r["name"]) == r["name"]:
+            if fed.get(k, r["name"]) == r["name"] and counts[k]:
                 r["launches"] += counts[k]
+                r["blocks"] += n_blocks
 
     data = rf_blocks(N_CH, N_BLOCKS)
     data_q15 = q15(data)
@@ -551,7 +775,7 @@ def main() -> int:
         feed(counts, {
             "K1": f"K1 frontend zoom={zoom if zoom >= 0 else None} "
                   f"{'q15' if q else 'c64'}",
-            "K7": f"K7 xanr {'notch' if kw.get('notch_on') else 'nr'}"})
+            "K7": f"K7 xanr {'notch' if kw.get('notch_on') else 'nr'}"}, B)
         want = {"audio": (B, N_CH, C.BLOCK_SIZE
                           if kw.get("interpolate_out", True)
                           else C.AUDIO_BLOCK),
@@ -655,7 +879,7 @@ def main() -> int:
     counts = read_counts()
     if counts["K5"] == 0 or counts["K2"] != 0:
         raise AssertionError(f"short-block AGC path: launches {counts}")
-    feed(counts, {})
+    feed(counts, {}, agc_in.shape[-1] // C.AUDIO_BLOCK)
     st_p, y_p = agc_stream(False, AGC_PIECE)
     st_2, y_2 = agc_stream(True, C.AUDIO_BLOCK)
     report = {}
@@ -693,33 +917,33 @@ def main() -> int:
 
     # where the time goes: device time per block of each CUDA kernel,
     # by name, under torch.profiler over 20 blocks after 5 warm-up blocks
-    from torch.profiler import ProfilerActivity, profile
-
     blk, pr = rf_blocks(N_CH, 1)[0], params(N_CH)
     for name in TIMED:
         chain = RxChain(ChainSpec(use_kernels=True, **SPECS[name][0]),
                         device=dev)
-        st = chain.init_state((N_CH,))
+        st = [chain.init_state((N_CH,))]
+
+        def step():
+            st[0] = chain.block(pr, st[0], blk)[0]
+
         for _ in range(5):
-            st, _ = chain.block(pr, st, blk)
+            step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(20):
-                st, _ = chain.block(pr, st, blk)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 20
-        dev_us = {}
-        for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                dev_us[ev.key] = ev.device_time_total / 20
+        per, wall = kernel_us(step, 20)
+        dev_us = {k: us * m for k, (us, m) in per.items()}
+        wall /= 20
         log(f"# profile {name}: {N_CH} ch, device "
             f"{sum(dev_us.values()):.1f} us/block of wall "
             f"{wall * 1e6:.1f} us/block under the profiler ({card})")
         for k, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
             log(f"#   {us:10.1f} us/block  {k[:110]}")
 
+    for r in rows:
+        r["launches_per_block"] = (r["launches"] / r["blocks"]
+                                   if r["blocks"] else 0.0)
+        del r["blocks"]
+        if r["launches"] == 0:
+            raise AssertionError(f"{r['name']}: launched on no main path")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -729,4 +953,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -61,7 +61,7 @@ class ChainSpec:
     spectrum_zoom: int = -1    # -1 off / 0 zoom x1 / 1..7 zoom x2^z
     interpolate_out: bool = True
     use_matmul_osfilter: bool = True
-    use_kernels: bool = False  # CUDA kernels (plain versions on CPU)
+    use_kernels: bool = True   # CUDA kernels (plain versions on CPU)
     q15_input: bool = False    # ingest ADC q15 int16 (i, q) pairs
     spectrum_taps: bool = True  # emit audio-spectrum + S-meter taps
     clip_taps: bool = False    # emit ADC half/quarter-clip flags
@@ -84,7 +84,7 @@ class ChannelParams(NamedTuple):
 
 
 def default_params(channels: tuple[int, ...] = (), nco_freq: float = 0.0,
-                   volume: float = 50.0, device=None) -> ChannelParams:
+                   volume: float = 50.0, device="cuda") -> ChannelParams:
     def f(v):
         return torch.full(channels, v, dtype=torch.float32, device=device)
 
@@ -120,11 +120,17 @@ class RxState(NamedTuple):
 
 class RxChain:
     """Configured receive chain: the spec, the designed filters (NumPy,
-    plus tensors on `device`), and `block` over (params, state, iq)."""
+    plus tensors on `device`), and `block` over (params, state, iq).
+    It runs on the card unless the caller passes `device="cpu"`; with no
+    card visible that default raises (there is no fallback)."""
 
-    def __init__(self, spec: ChainSpec = ChainSpec(), device="cpu"):
+    def __init__(self, spec: ChainSpec = ChainSpec(), device="cuda"):
         self.spec = spec
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "RxChain: no CUDA card is visible; pass device=\"cpu\" to "
+                "run the chain's plain torch versions on the CPU")
         lp = min(max(spec.f_hi, -spec.f_lo), 10_000.0)
         # NFM refits the decimators to the demod bandwidth
         # (Process.cpp:259, SetDecIntFilters(nfmFilterBW))
@@ -202,6 +208,9 @@ class RxChain:
         if spec.use_kernels:
             from t41x_torch.kernels.frontend import FusedFrontEnd
             from t41x_torch.kernels.interp import FusedInterp
+            from t41x_torch.kernels.os_filter import pack_w
+            # K4 reads W as k-major real and imaginary planes
+            self.tensors["os_Wp"] = pack_w(self.tensors["os_W"])
             if self.zoomfft is not None:
                 zkw = dict(zoom=spec.spectrum_zoom,
                            zoom_sos=(self.zoomfft.iir_b,
@@ -424,7 +433,8 @@ class RxChain:
                 osf, x, t["os_F"], t["os_W2"], t["os_mask_sq"])
         if spec.use_kernels:
             from t41x_torch.kernels.os_filter import os_filter_matmul_kernel
-            return (*os_filter_matmul_kernel(osf, x, t["os_W"]), None)
+            return (*os_filter_matmul_kernel(osf, x, t["os_W"], t["os_Wp"]),
+                    None)
         return (*osfilter.os_filter_matmul(osf, x, t["os_W"]), None)
 
     def _tail_post_nr(self, params, state, audio, outputs):

@@ -28,9 +28,25 @@ from t41x_torch.kernels import _build
 
 _K = 128     # DC-biquad chunk length
 _ZRES = 512  # zoom-1 display segment length (SPECTRUM_RES)
-_ARGS = [_build.PTR] * 11 + [_build.FLOAT] + [_build.PTR] * 2 \
-    + [_build.INT] * 6 + [_build.FLOAT] + [_build.PTR] * 6 + [_build.INT] \
-    + [_build.PTR] * 3 + [_build.INT] * 2 + [_build.PTR] * 3
+_N = C.BLOCK_SIZE         # the kernel's block length
+_TAPS = (28, 46)          # the kernel's x4 and x2 decimator tap counts
+_ARGS = [_build.PTR] * 8 + [_build.INT] * 6 + [_build.FLOAT] \
+    + [_build.PTR] * 6 + [_build.INT] + [_build.PTR] * 4 \
+    + [_build.INT] * 2 + [_build.PTR] * 3
+
+
+def dc_taps(op: iir.BiquadChunked) -> np.ndarray:
+    """The 127 taps h of the DC biquad's in-chunk operator, which is
+    Toeplitz: L[n, j] = h[n-1-j] for j < n (`iir.BiquadChunked`)."""
+    return np.ascontiguousarray(op.L[0][1:, 0])
+
+
+def zoom_taps(Wy: np.ndarray, K: int = _K):
+    """(hz, Rz) of the zoom tap's output operator Wy (K+S, K/zf): its x
+    part is Toeplitz, Wy[i, r] = hz[(r+1) zf - 1 - i] for i <= (r+1) zf
+    - 1 (else 0), read off the last column; Rz = Wy[K:].T (K/zf, S)."""
+    return (np.ascontiguousarray(Wy[K - 1::-1, -1]),
+            np.ascontiguousarray(Wy[K:].T))
 
 
 class FusedFrontEnd:
@@ -56,6 +72,14 @@ class FusedFrontEnd:
         self.zoom = zoom
         self.dc_op = iir.BiquadChunked(dc_b, dc_a, chunk=_K)
         self._consts = {}
+        op = self.dc_op
+        # the kernel's constant block (its FeConst, field by field): the
+        # DC taps with a leading 0, R, G, AK, b0, the reversed decimator
+        # taps; passed by value at every launch
+        self.kernel_consts = np.concatenate([
+            [0.0], dc_taps(op), op.R[0].ravel(), op.G[0].ravel(),
+            op.AK[0].ravel(), op.b0[:1], self.h1[::-1], self.h2[::-1]
+        ]).astype(np.float32)
         self.zoomed = zoom is not None and zoom >= 1  # the 2^z tap (K1z)
         if self.zoomed:
             zb, za = zoom_sos
@@ -74,12 +98,10 @@ class FusedFrontEnd:
     def _on(self, device):
         """Operators and taps as tensors on `device` (made once)."""
         if device not in self._consts:
-            op = self.dc_op
-            arrays = dict(Lt=op.L[0].T, R=op.R[0], G=op.G[0], AK=op.AK[0],
-                          h1=self.h1, h2=self.h2, h1r=self.h1[::-1],
-                          h2r=self.h2[::-1])
+            arrays = dict(h1=self.h1, h2=self.h2)
             if self.zoomed:
-                arrays.update(Wy=self.Wy, Ws=self.Ws, zh=self.zoom_h)
+                hz, Rz = zoom_taps(self.Wy)
+                arrays.update(hz=hz, Rz=Rz, Ws=self.Ws, zh=self.zoom_h)
             self._consts[device] = {
                 k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 for k, v in arrays.items()}
@@ -151,17 +173,22 @@ class FusedFrontEnd:
         dev = ref.device
         lead, n = tuple(ref.shape[:-1]), ref.shape[-1]
         c = math.prod(lead)
-        if n % _K or n % C.DF or n < _ZRES:
-            raise ValueError(f"FusedFrontEnd: block length {n} must be a "
-                             f"multiple of {_K} and at least {_ZRES}")
+        if n != _N or (self.t1, self.t2) != _TAPS:
+            raise ValueError(
+                f"FusedFrontEnd: the kernel takes blocks of {_N} samples and "
+                f"{_TAPS} decimator taps, got {n} and {(self.t1, self.t2)}")
         f32, c64 = torch.float32, torch.complex64
         cin = _build.cuda_input
         if q15:
-            xi_ = cin("iq[0]", iq[0], torch.int16, lead + (n,), dev)
-            xq_ = cin("iq[1]", iq[1], torch.int16, lead + (n,), dev)
+            # read as pairs of int16: 4-byte aligned
+            xi_, xq_ = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (
+                cin("iq[0]", iq[0], torch.int16, lead + (n,), dev),
+                cin("iq[1]", iq[1], torch.int16, lead + (n,), dev)))
             x_ = None
         else:
             x_ = cin("iq", iq, c64, lead + (n,), dev)
+            if x_.data_ptr() % 16:  # read as float4
+                x_ = x_.clone()
             xi_ = xq_ = None
         g = self._gain(params, q15)
         w = 2.0 * math.pi * params.nco_freq.to(f32) / self.fs
@@ -190,11 +217,10 @@ class FusedFrontEnd:
             nzs = torch.empty(lead + (2 * S,), dtype=f32, device=dev)
         p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         _build.launch(
-            "t41x_frontend", _ARGS, p(x_), p(xi_), p(xq_), p(pp), p(dcs),
-            p(h1s), p(h2s), p(k["Lt"]), p(k["R"]), p(k["G"]), p(k["AK"]),
-            float(self.dc_op.b0[0]), p(k["h1r"]), p(k["h2r"]), c, n,
-            self.t1, self.t2, C.DF1, C.DF2, self.nco_gain, p(y), p(ndcs),
-            p(nph), p(nd1), p(nd2), p(seg), _ZRES, p(k.get("Wy")),
+            "t41x_frontend", _ARGS, self.kernel_consts.ctypes.data, p(x_),
+            p(xi_), p(xq_), p(pp), p(dcs), p(h1s), p(h2s), c, n, self.t1,
+            self.t2, C.DF1, C.DF2, self.nco_gain, p(y), p(ndcs), p(nph),
+            p(nd1), p(nd2), p(seg), _ZRES, p(k.get("hz")), p(k.get("Rz")),
             p(k.get("Ws")), p(zs), S, self.zfactor if self.zoomed else 0,
             p(zdec), p(nzs), _build.stream_of(ref))
         FusedFrontEnd.launches += 1

@@ -49,12 +49,12 @@ def _to_numpy(t):
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
 
 
-def params_from_numpy(params, device="cpu") -> ChannelParams:
+def params_from_numpy(params, device="cuda") -> ChannelParams:
     """t41x `ChannelParams` (array leaves) -> the port's, on `device`."""
     return ChannelParams(*_map(_to_tensor(device), tuple(params)))
 
 
-def state_from_numpy(state, device="cpu") -> RxState:
+def state_from_numpy(state, device="cuda") -> RxState:
     """t41x `RxState` (NumPy leaves, or arrays `np.asarray` accepts) ->
     the port's `RxState` of tensors on `device`, every nested state as
     the port's type."""

@@ -46,7 +46,7 @@ EQ = np.testing.assert_array_equal
 
 @pytest.mark.parametrize("kw", SPECS)
 def test_chain_designs_equal(kw):
-    j, t = JChain(JSpec(**kw)), RxChain(ChainSpec(**kw))
+    j, t = JChain(JSpec(**kw)), RxChain(ChainSpec(**kw), device="cpu")
     for name in ("h1", "h2", "hi1", "hi2", "mask", "os_W", "os_F", "os_W2",
                  "os_mask_sq", "dc_b", "dc_a"):
         a, b = getattr(t, name), getattr(j, name)
@@ -187,14 +187,18 @@ def test_kernel_operators_equal():
     chain = JChain(JSpec())
     jf = JFront(chain.h1, chain.h2, chain.dc_b[0], chain.dc_a[0])
     tf = TFront(chain.h1, chain.h2, chain.dc_b[0], chain.dc_a[0])
-    k = tf._on(torch.device("cpu"))
-    EQ(k["Lt"].numpy(), jf.Lt)
-    EQ(k["R"].numpy().T, jf.Rt)
-    EQ(k["G"].numpy(), jf.G)
-    EQ(k["AK"].numpy().T, jf.AKt)
-    EQ(k["h1r"].numpy(), jf.h1_rev)
-    EQ(k["h2r"].numpy(), jf.h2_rev)
-    assert float(tf.dc_op.b0[0]) == jf.b0
+    # the CUDA kernel's constant block: [0, the DC operator's Toeplitz
+    # taps (its first column below the diagonal)], R, G, AK, b0, the
+    # reversed decimator taps
+    kc = tf.kernel_consts
+    assert kc[0] == 0.0
+    EQ(kc[1:128], jf.Lt[0, 1:])
+    EQ(kc[128:384].reshape(128, 2).T, jf.Rt)
+    EQ(kc[384:640].reshape(128, 2), jf.G)
+    EQ(kc[640:644].reshape(2, 2).T, jf.AKt)
+    assert kc[644] == jf.b0 == float(tf.dc_op.b0[0])
+    EQ(kc[645:673], jf.h1_rev)
+    EQ(kc[673:], jf.h2_rev)
     ji, ti = JInterp(chain.hi1, chain.hi2), TInterp(chain.hi1, chain.hi2)
     EQ(ti.hp1, ji.hp1)
     EQ(ti.hp2, ji.hp2)
@@ -287,7 +291,7 @@ def test_eq_cw_nb_designs_equal():
 @pytest.mark.parametrize("index", range(5))
 def test_cw_chain_designs_equal(index):
     kw = dict(mode="cw", cw_filter_index=index, eq_on=True)
-    j, t = JChain(JSpec(**kw)), RxChain(ChainSpec(**kw))
+    j, t = JChain(JSpec(**kw)), RxChain(ChainSpec(**kw), device="cpu")
     for name in ("cw_lp_b", "cw_lp_a"):
         a, b = getattr(t, name), getattr(j, name)
         assert a.dtype == b.dtype, name

@@ -32,7 +32,7 @@ from t41x_torch.kernels.interp import FusedInterp as TInterp
 torch.set_num_threads(1)
 
 BLOCKS = 3
-CHAIN = RxChain(ChainSpec())  # designs pinned equal to t41x's
+CHAIN = RxChain(ChainSpec(), device="cpu")  # designs pinned equal to t41x's
 T = torch.from_numpy
 
 
@@ -71,7 +71,7 @@ def _q15(x):
     return cv(x.real), cv(x.imag)
 
 
-def _params(ch, device=None):
+def _params(ch, device="cpu"):
     lin = lambda a, b: torch.linspace(a, b, ch, device=device)  # noqa: E731
     return tparams((ch,), device=device)._replace(
         nco_freq=lin(-500.0, 700.0), rf_gain_db=lin(-3.0, 6.0),
@@ -343,11 +343,11 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ch", [130, 1000])
 @pytest.mark.parametrize("fmt", ["c64", "q15"])
 @pytest.mark.parametrize("zoom", [None, 0])
-def test_frontend_kernel_matches_plain_on_card(cuda, zoom, fmt):
+def test_frontend_kernel_matches_plain_on_card(cuda, zoom, fmt, ch):
     rng = np.random.default_rng(31)
-    ch = 130
     tf = _front(TFront, zoom)
     tp = _params(ch, cuda)
     sk = sp = tf.init_state((ch,), cuda)
@@ -366,13 +366,13 @@ def test_frontend_kernel_matches_plain_on_card(cuda, zoom, fmt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ch", [130, 1000])
 @pytest.mark.parametrize("fmt", ["c64", "q15"])
 @pytest.mark.parametrize("zoom", [1, 3, 7])
-def test_frontend_zoom_kernel_matches_plain_on_card(cuda, zoom, fmt):
+def test_frontend_zoom_kernel_matches_plain_on_card(cuda, zoom, fmt, ch):
     """K1z: the composed zoom tap in the kernel against the per-stage
     plain version, state carried over the blocks."""
     rng = np.random.default_rng(38)
-    ch = 130
     tf = _front(TFront, zoom)
     tp = _params(ch, cuda)
     sk = sp = tf.init_state((ch,), cuda)
@@ -440,16 +440,43 @@ def test_interp_kernel_matches_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_os_filter_kernel_matches_plain_on_card(cuda):
+@pytest.mark.parametrize("ch", [130, 1000])
+def test_os_filter_kernel_matches_plain_on_card(cuda, ch):
     rng = np.random.default_rng(34)
-    ch = 130
     W = T(CHAIN.os_W).to(cuda)
     sk = sp = tosf.os_state((ch,), device=cuda)
+    n0 = tk_os.os_filter_matmul_kernel.launches
     for _ in range(BLOCKS):
         x = T(_cx(rng, ch, 256, scale=0.3)).to(cuda)
         sk, yk = tk_os.os_filter_matmul_kernel(sk, x, W)
         sp, yp = tosf.os_filter_matmul(sp, x, W)
         _close(yk, yp.cpu(), 2e-3, 2e-4, "y")
+        _close(sk, sp.cpu(), 0.0, 0.0, "state")
+    assert tk_os.os_filter_matmul_kernel.launches == n0 + BLOCKS
+
+
+@pytest.mark.gpu
+def test_os_filter_kernel_follows_each_chains_passband(cuda):
+    """Headless chains of other passbands, each built after the last is
+    freed, filter through their own packed W: K4 on each chain's path
+    against the plain version with that chain's W."""
+    rng = np.random.default_rng(35)
+    ch = 130
+    last = None
+    for f_lo, f_hi in ((200.0, 3000.0), (500.0, 1500.0), (200.0, 2400.0)):
+        chain = RxChain(ChainSpec(f_lo=f_lo, f_hi=f_hi, spectrum_taps=False),
+                        device=cuda)
+        W = chain.tensors["os_W"]
+        sk = sp = tosf.os_state((ch,), device=cuda)
+        for _ in range(BLOCKS):
+            x = T(_cx(rng, ch, 256, scale=0.3)).to(cuda)
+            sk, yk, _ = chain._os_filter(sk, x)
+            sp, yp = tosf.os_filter_matmul(sp, x, W)
+            _close(yk, yp.cpu(), 2e-3, 2e-4, f"y {f_lo}-{f_hi} Hz")
+        if last is not None:
+            assert not torch.equal(W, last)
+        last = W.clone()
+        del chain, W
 
 
 @pytest.mark.gpu

@@ -25,7 +25,7 @@ from t41x_torch.kernels.frontend import FusedFrontEnd as TFront
 torch.set_num_threads(1)
 
 BLOCKS = 3
-CHAIN = RxChain(ChainSpec())
+CHAIN = RxChain(ChainSpec(), device="cpu")
 T = torch.from_numpy
 
 
@@ -80,7 +80,7 @@ def test_frontend_zoom_plain_matches_pallas(jx, zoom, fmt, ch):
     kw = dict(zoom=zoom, zoom_sos=(z.iir_b, z.iir_a), zoom_h=z.h)
     jf, tf = JFront(*args, **kw), TFront(*args, **kw)
     lin = lambda a, b: torch.linspace(a, b, ch)  # noqa: E731
-    tp = tparams((ch,))._replace(
+    tp = tparams((ch,), device="cpu")._replace(
         nco_freq=lin(-500.0, 700.0), rf_gain_db=lin(-3.0, 6.0),
         iq_amp=lin(0.97, 1.03), iq_phase=lin(-0.02, 0.02))
     jp = tp._replace(**{f: jnp.asarray(getattr(tp, f).numpy())

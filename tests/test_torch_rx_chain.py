@@ -102,10 +102,10 @@ def _assert_outputs_close(to, jo):
 def test_port_chain_matches_t41x(spec, kernels, ch, blocks):
     kw = SPECS[spec]
     jc = JChain(JSpec(use_pallas=kernels, **kw))
-    tc = RxChain(ChainSpec(use_kernels=kernels, **kw))
+    tc = RxChain(ChainSpec(use_kernels=kernels, **kw), device="cpu")
     assert (tc.fused_fe is not None) == kernels
     jp = _params(ch)
-    tp = convert.params_from_numpy(jp)
+    tp = convert.params_from_numpy(jp, device="cpu")
     step = jax.jit(jc.block)
     js, ts = jc.init_state((ch,)), tc.init_state((ch,))
     for blk in _blocks(_iq(ch, blocks), kw.get("q15_input", False)):
@@ -121,15 +121,16 @@ def test_state_moves_between_t41x_and_port_mid_stream():
     ch, blocks = 4, 4
     kw = SPECS["rx"]
     jc = JChain(JSpec(use_pallas=True, **kw))
-    tc = RxChain(ChainSpec(use_kernels=True, **kw))
+    tc = RxChain(ChainSpec(use_kernels=True, **kw), device="cpu")
     jp = _params(ch)
-    tp = convert.params_from_numpy(jp)
+    tp = convert.params_from_numpy(jp, device="cpu")
     step = jax.jit(jc.block)
     ref, mix = jc.init_state((ch,)), jc.init_state((ch,))
     for b, blk in enumerate(_blocks(_iq(ch, blocks, seed=5), False)):
         ref, out_ref = step(jp, ref, blk)
         if b == 2:
-            st = convert.state_from_numpy(jax.tree.map(np.asarray, mix))
+            st = convert.state_from_numpy(jax.tree.map(np.asarray, mix),
+                                          device="cpu")
             st, out = tc.block(tp, st, _torch_blk(blk))
             mix = convert.state_to_numpy(st)
             out = {k: v.numpy() for k, v in out.items()}
@@ -146,7 +147,7 @@ def test_state_moves_between_t41x_and_port_mid_stream():
 
 def test_run_streams_a_capture():
     ch, blocks = 3, 2
-    tc = RxChain(ChainSpec(**SPECS["rx"]))
+    tc = RxChain(ChainSpec(use_kernels=False, **SPECS["rx"]), device="cpu")
     out = tc.run(_iq(ch, blocks))
     assert out["audio"].shape == (ch, blocks * C.BLOCK_SIZE)
     assert out["audio_24k"].shape == (ch, blocks * C.AUDIO_BLOCK)

@@ -107,7 +107,7 @@ def _assert_state_close(sa, sb):
 
 def _pair(kw, kernels):
     return (JChain(JSpec(use_pallas=kernels, **kw)),
-            RxChain(ChainSpec(use_kernels=kernels, **kw)))
+            RxChain(ChainSpec(use_kernels=kernels, **kw), device="cpu"))
 
 
 @pytest.mark.parametrize("kernels", [True, False])
@@ -118,7 +118,7 @@ def test_cw_eq_nb_specs_match_t41x(spec, kernels):
     jc, tc = _pair(kw, kernels)
     assert (tc.fused_fe is not None) == kernels
     jp = _params(ch, eq=spec == "eq", tuned=spec == "cw")
-    tp = convert.params_from_numpy(jp)
+    tp = convert.params_from_numpy(jp, device="cpu")
     step = jax.jit(jc.block)
     js, ts = jc.init_state((ch,)), tc.init_state((ch,))
     keyed = []
@@ -154,7 +154,8 @@ def test_cw_chain_decodes_like_t41x():
     kw = dict(mode="cw", f_lo=200.0, f_hi=3000.0, interpolate_out=False,
               agc_mode=0)
     ref = JChain(JSpec(**kw)).run(np.asarray(iq))
-    out = RxChain(ChainSpec(**kw)).run(np.asarray(iq))
+    out = RxChain(ChainSpec(use_kernels=False, **kw),
+                  device="cpu").run(np.asarray(iq))
     keyed = out["cw_keyed"].numpy().astype(bool)
     np.testing.assert_array_equal(keyed, np.asarray(ref["cw_keyed"]))
     want = cw_text.decode_envelope(np.asarray(ref["cw_keyed"]).astype(bool))
@@ -170,13 +171,14 @@ def test_state_moves_between_t41x_and_port_mid_stream():
     kw = dict(mode="cw", cw_filter_index=1, eq_on=True)
     jc, tc = _pair(kw, True)
     jp = _params(ch, eq=True, tuned=True)
-    tp = convert.params_from_numpy(jp)
+    tp = convert.params_from_numpy(jp, device="cpu")
     step = jax.jit(jc.block)
     ref, mix = jc.init_state((ch,)), jc.init_state((ch,))
     for b, blk in enumerate(_blocks(_iq("cw", ch, 4, seed=5))):
         ref, out_ref = step(jp, ref, blk)
         if b == 2:
-            st = convert.state_from_numpy(jax.tree.map(np.asarray, mix))
+            st = convert.state_from_numpy(jax.tree.map(np.asarray, mix),
+                                          device="cpu")
             assert type(st.cw).__module__ == "t41x_torch.demod.cw"
             st, out = tc.block(tp, st, torch.from_numpy(blk))
             mix = convert.state_to_numpy(st)
@@ -197,7 +199,7 @@ def test_block_batch_matches_block_for_zoom_cw_eq():
     jc, tc = _pair(kw, False)
     blocks = np.stack(_blocks(_iq("cw", ch, B, seed=9)))
     jp = _params(ch, eq=True, tuned=True)
-    tp = convert.params_from_numpy(jp)
+    tp = convert.params_from_numpy(jp, device="cpu")
     st_b, out_b = tc.block_batch(tp, tc.init_state((ch,)),
                                  torch.from_numpy(blocks))
     st = tc.init_state((ch,))

@@ -59,13 +59,13 @@ def _iq(ch, blocks, am, seed=7):
 
 def _pair(kw, kernels):
     return (JChain(JSpec(use_pallas=kernels, **kw)),
-            RxChain(ChainSpec(use_kernels=kernels, **kw)))
+            RxChain(ChainSpec(use_kernels=kernels, **kw), device="cpu"))
 
 
 def _stream(jc, tc, blocks, ch):
     """Both chains over the same blocks; per-block outputs as numpy."""
     jp = jparams((ch,))
-    tp = convert.params_from_numpy(jp)
+    tp = convert.params_from_numpy(jp, device="cpu")
     step = jax.jit(jc.block)
     js, ts = jc.init_state((ch,)), tc.init_state((ch,))
     jo, to = [], []
@@ -118,13 +118,14 @@ def test_state_moves_between_t41x_and_port_mid_stream(kw):
     ch = 3
     jc, tc = _pair(kw, True)
     jp = jparams((ch,))
-    tp = convert.params_from_numpy(jp)
+    tp = convert.params_from_numpy(jp, device="cpu")
     step = jax.jit(jc.block)
     ref, mix = jc.init_state((ch,)), jc.init_state((ch,))
     for b, blk in enumerate(_iq(ch, 4, am=kw["mode"] == "sam", seed=5)):
         ref, out_ref = step(jp, ref, blk)
         if b == 2:
-            st = convert.state_from_numpy(jax.tree.map(np.asarray, mix))
+            st = convert.state_from_numpy(jax.tree.map(np.asarray, mix),
+                                          device="cpu")
             assert type(st.sam).__module__ == "t41x_torch.demod.sam"
             if kw.get("nr_mode"):
                 assert type(st.nr).__module__ == "t41x_torch.dsp.nr"
@@ -148,7 +149,7 @@ def test_block_batch_matches_block_and_t41x(spec):
     kw = WAVEFORM[spec]
     jc, tc = _pair(kw, False)
     blocks = np.stack(_iq(ch, B, am=False, seed=9))
-    tp = convert.params_from_numpy(jparams((ch,)))
+    tp = convert.params_from_numpy(jparams((ch,)), device="cpu")
     st_b, out_b = tc.block_batch(tp, tc.init_state((ch,)),
                                  torch.from_numpy(blocks))
     st = tc.init_state((ch,))

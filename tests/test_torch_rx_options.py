@@ -58,11 +58,11 @@ def test_every_spec_option_runs(field, value, kernels):
     assert {f.name for f in dataclasses.fields(JSpec)} - {"use_pallas"} \
         == {f.name for f in dataclasses.fields(ChainSpec)} - {"use_kernels"}
     ch = 2
-    tc = RxChain(ChainSpec(use_kernels=kernels, **kw))
+    tc = RxChain(ChainSpec(use_kernels=kernels, **kw), device="cpu")
     blk = _block(ch, kw.get("q15_input", False))
     tblk = (tuple(map(torch.from_numpy, blk)) if isinstance(blk, tuple)
             else torch.from_numpy(blk))
-    _, out = tc.block(convert.params_from_numpy(jparams((ch,))),
+    _, out = tc.block(convert.params_from_numpy(jparams((ch,)), device="cpu"),
                       tc.init_state((ch,)), tblk)
     jc = JChain(JSpec(**kw))
     _, jo = jax.eval_shape(jc.block, jparams((ch,)), jc.init_state((ch,)),

@@ -101,12 +101,12 @@ def test_zoom_specs_match_t41x(spec, kernels):
     ch = 3
     kw = SPECS[spec]
     jc = JChain(JSpec(use_pallas=kernels, **kw))
-    tc = RxChain(ChainSpec(use_kernels=kernels, **kw))
+    tc = RxChain(ChainSpec(use_kernels=kernels, **kw), device="cpu")
     assert (tc.fused_fe is not None) == kernels
     if kernels:
         assert tc.fused_fe.zoom == kw["spectrum_zoom"]
     jp = _params(ch)
-    tp = convert.params_from_numpy(jp)
+    tp = convert.params_from_numpy(jp, device="cpu")
     step = jax.jit(jc.block)
     js, ts = jc.init_state((ch,)), tc.init_state((ch,))
     for b, blk in enumerate(_blocks(ch, 2, kw.get("q15_input", False))):
@@ -127,15 +127,16 @@ def test_zoom_state_moves_between_t41x_and_port_mid_stream():
     ch = 3
     kw = SPECS["zoom3"]
     jc = JChain(JSpec(use_pallas=True, **kw))
-    tc = RxChain(ChainSpec(use_kernels=True, **kw))
+    tc = RxChain(ChainSpec(use_kernels=True, **kw), device="cpu")
     jp = _params(ch)
-    tp = convert.params_from_numpy(jp)
+    tp = convert.params_from_numpy(jp, device="cpu")
     step = jax.jit(jc.block)
     ref, mix = jc.init_state((ch,)), jc.init_state((ch,))
     for b, blk in enumerate(_blocks(ch, 4, False, seed=5)):
         ref, out_ref = step(jp, ref, blk)
         if b == 2:
-            st = convert.state_from_numpy(jax.tree.map(np.asarray, mix))
+            st = convert.state_from_numpy(jax.tree.map(np.asarray, mix),
+                                          device="cpu")
             assert type(st.zoom).__module__ == "t41x_torch.dsp.spectrum"
             st, out = tc.block(tp, st, torch.from_numpy(blk))
             mix = convert.state_to_numpy(st)
