@@ -26,7 +26,10 @@ failure):
    warm-up, 5 for the plain versions of the per-sample recurrences), the
    plain version's device time for K1 and K4, and for K4 the one PyTorch
    call that computes the same function (the cuBLAS product on the
-   concatenated input; no other kernel has one).  Each kernel's bound is
+   concatenated input; no other kernel has one).  K2 and K5 must equal
+   their plain versions bit for bit, from random carried states that
+   reach all five AGC states, and their `clock64` split per phase
+   (cold and warm) goes to the log.  Each kernel's bound is
    the larger of the operations its function needs over the card's fp32
    peak (67 TFLOP/s) and its bytes (each input read once, each output
    written once) over its memory rate (3.35 TB/s);
@@ -222,6 +225,17 @@ PROFILER_TRIES = 5
 _flush = {}  # the flush buffer, and the profiler's names of its kernels
 
 
+def l2_flush() -> None:
+    """Read a buffer five times L2's size (its max), so that what the
+    next kernel reads comes from device memory; a read leaves no dirty
+    line for that kernel to write back."""
+    import torch
+    if "buf" not in _flush:
+        _flush["buf"] = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                    device="cuda")
+    _flush["buf"].max()
+
+
 def kernel_us(body, n: int, check=None):
     """Each CUDA kernel `body` launches, by name: (device µs a launch,
     launches a call), over `n` calls under torch.profiler; and the
@@ -261,15 +275,12 @@ def device_us(fn, match=None, reps: int = 20) -> float:
     """Device time per call of the CUDA kernels `fn` launches whose name
     holds `match` (all of them when None): `reps` calls after 3 warm-up
     calls, with L2 flushed before each, so that what `fn` reads comes
-    from device memory as its bound assumes, not from the last call.
-    The flush reads a buffer five times L2's size (its max), so it
-    leaves no dirty line for `fn` to write back."""
+    from device memory as its bound assumes, not from the last call
+    (`l2_flush`)."""
     import torch
-    if not _flush:
-        buf = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-        _flush["flush"] = buf.max
-        _flush["keys"] = set(kernel_us(buf.max, reps)[0])
-    flush, keys = _flush["flush"], _flush["keys"]
+    if "keys" not in _flush:
+        _flush["keys"] = set(kernel_us(l2_flush, reps)[0])
+    flush, keys = l2_flush, _flush["keys"]
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -350,9 +361,9 @@ def main(argv: list[str]) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(7)
 
-    def cnoise(*shape, scale=1.0):
-        re = torch.randn(shape, generator=gen, device=dev)
-        im = torch.randn(shape, generator=gen, device=dev)
+    def cnoise(*shape, scale=1.0, g=gen):
+        re = torch.randn(shape, generator=g, device=dev)
+        im = torch.randn(shape, generator=g, device=dev)
         return torch.complex(re, im) * scale
 
     def rf_blocks(n_ch, n_blocks):
@@ -525,46 +536,90 @@ def main(argv: list[str]) -> int:
             (iq, st_k, p[:5], z_k),
             fe.block(p, st_k, iq, z_k), plain_device=True)
 
+    # K2 and K5 are exact: every operation of the recurrence and the gain
+    # curve is rounded alone on both sides.  The carried states start
+    # random (any of the five AGC states, live hang counters, either
+    # decay type) and the levels move between a burst and near silence,
+    # so that every branch of the recurrence runs.  The states come from
+    # a generator of their own, so the main paths' stimuli below stay
+    # those of earlier trees.
     ap = agc_mod.agc_params(2)
-    st_k = st_p = agc_mod.agc_state(ap, (N_CH,), dev)
-    err = 0.0
-    for b in range(3):  # levels that move the gain through its states
-        x = cnoise(N_CH, C.AUDIO_BLOCK, scale=(0.02, 0.5, 0.005)[b])
-        st_k, y_k = kagc.agc_block(ap, st_k, x)
-        st_p, y_p = kagc.agc_block_plain(ap, st_p, x)
-        err = max(err, close("K2 y", y_k, y_p, 1e-6, 1e-7))
+    agc_gen = torch.Generator(device=dev).manual_seed(11)
+
+    def agc_rand_state(n_ch):
+        u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+            n_ch, generator=agc_gen, device=dev)
+        ri = lambda hi: torch.randint(0, hi, (n_ch,), generator=agc_gen,  # noqa
+                                      device=dev, dtype=torch.int32)
+        ring = cnoise(n_ch, ap.attack_buffsize, scale=0.1, g=agc_gen)
+        return agc_mod.AGCState(ring, ring.abs(), u(ap.min_volts, 1.5),
+                                u(0.0, 1.5), u(0.0, 0.5), u(0.0, 0.1),
+                                ri(300), ri(2), ri(5))
+
+    levels = (0.001, 0.3, 0.0005)
+    st_k = st_p = agc_rand_state(N_CH)
+    err, seen = 0.0, set()
+    for b in range(3):
+        x2 = cnoise(N_CH, C.AUDIO_BLOCK, scale=levels[b])
+        st_k, y_k = kagc.agc_block(ap, st_k, x2)
+        st_p, y_p = kagc.agc_block_plain(ap, st_p, x2)
+        err = max(err, close("K2 y", y_k, y_p, 0.0, 0.0))
         for f in st_p._fields:
-            close(f"K2 {f}", getattr(st_k, f), getattr(st_p, f), 1e-6, 1e-7)
-    row("K2 agc_block", K2, lambda: kagc.agc_block(ap, st_k, x),
-        lambda: kagc.agc_block_plain(ap, st_k, x), err, (1e-6, 1e-7),
-        OPS_PER_ELEMENT["K2"] * x.numel(), (x, st_k),
-        kagc.agc_block(ap, st_k, x), plain_reps=REPS_PLAIN)
+            close(f"K2 {f}", getattr(st_k, f), getattr(st_p, f), 0.0, 0.0)
+        seen |= set(st_p.state.unique().tolist())
+    if seen != {0, 1, 2, 3, 4}:
+        raise AssertionError(f"K2 check reached AGC states {sorted(seen)}")
+    row("K2 agc_block", K2, lambda: kagc.agc_block(ap, st_k, x2),
+        lambda: kagc.agc_block_plain(ap, st_k, x2), err, (0.0, 0.0),
+        OPS_PER_ELEMENT["K2"] * x2.numel(), (x2, st_k),
+        kagc.agc_block(ap, st_k, x2), plain_reps=REPS_PLAIN)
 
     # K5: the recurrence alone over 64-sample pieces at K2's levels, its
     # ring-max and |out| streams formed as agc_apply forms them
-    st = agc_mod.agc_state(ap, (N_CH,), dev)
-    c_k = c_p = (st.volts, st.save_volts, st.fast_backaverage,
-                 st.hang_backaverage, st.hang_counter, st.decay_type,
-                 st.state)
+    st = agc_rand_state(N_CH)
+    c_k = c_p = tuple(st[2:])
     ring, abs_ring = st.ring, st.abs_ring
     err = 0.0
     for b in range(3):
-        x = cnoise(N_CH, AGC_PIECE, scale=(0.02, 0.5, 0.005)[b])
-        full = torch.cat([ring, x], dim=-1)
-        abs_full = torch.cat([abs_ring, x.abs()], dim=-1)
+        x5 = cnoise(N_CH, AGC_PIECE, scale=levels[b])
+        full = torch.cat([ring, x5], dim=-1)
+        abs_full = torch.cat([abs_ring, x5.abs()], dim=-1)
         rm = agc_mod._sliding_window_max(abs_full, ap.attack_buffsize)[
             ..., 1: 1 + AGC_PIECE].T.contiguous()
         ao = abs_full[..., :AGC_PIECE].T.contiguous()
         ring, abs_ring = full[..., AGC_PIECE:], abs_full[..., AGC_PIECE:]
         c_k, v_k = kagc.agc_scan(ap, c_k, rm, ao)
         c_p, v_p = kagc.agc_scan_plain(ap, c_p, rm, ao)
-        err = max(err, close("K5 volts", v_k, v_p, 1e-6, 1e-7))
+        err = max(err, close("K5 volts", v_k, v_p, 0.0, 0.0))
         for i, (a, r) in enumerate(zip(c_k, c_p)):
-            close(f"K5 carry[{i}]", a, r, 1e-6, 1e-7)
+            close(f"K5 carry[{i}]", a, r, 0.0, 0.0)
     row("K5 agc_scan", K5, lambda: kagc.agc_scan(ap, c_k, rm, ao),
-        lambda: kagc.agc_scan_plain(ap, c_k, rm, ao), err, (1e-6, 1e-7),
+        lambda: kagc.agc_scan_plain(ap, c_k, rm, ao), err, (0.0, 0.0),
         OPS_PER_ELEMENT["K5"] * rm.numel(), (c_k, rm, ao),
         kagc.agc_scan(ap, c_k, rm, ao), plain_reps=REPS_PLAIN)
+
+    # where K2's and K5's time goes: clock64 stamps per phase, mean over
+    # the blocks of 10 launches, cold (L2 flushed before each) and warm
+    if hasattr(kagc, "agc_block_phases"):
+        for name, fn, names, steps in (
+                ("K2", lambda: kagc.agc_block_phases(ap, st_k, x2)[2],
+                 kagc.K2_PHASES, C.AUDIO_BLOCK),
+                ("K5", lambda: kagc.agc_scan_phases(ap, c_k, rm, ao)[2],
+                 kagc.K5_PHASES, AGC_PIECE)):
+            for temp in ("cold", "warm"):
+                fn()
+                stamps = []
+                for _ in range(10):
+                    if temp == "cold":
+                        l2_flush()
+                    stamps.append(fn())
+                split = kagc.phase_split(torch.cat(stamps), names)
+                ghz = split["sm_ghz"]
+                per_step = split["recurrence"] * 1e3 * ghz / steps
+                log(f"# {name} phases {temp}, us a block: " + ", ".join(
+                    f"{k} {split[k]:.3f}" for k in (*names, "block"))
+                    + f"; recurrence {per_step:.1f} cycles a step at "
+                    f"{ghz:.3f} GHz ({N_CH} channels, {card})")
 
     fi = kint.FusedInterp(rx.hi1, rx.hi2)
     vol = torch.linspace(0.5, 2.0, N_CH, device=dev)

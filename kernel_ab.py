@@ -10,7 +10,9 @@ the order A, B, ..., ..., B, A (so that a drift of the card's clock or
 of its neighbours shows as a difference between the two runs of one
 tree), it runs `chip_smoke.py --kernels ROOT` in a process of its own:
 that builds the tree's kernels, holds each against its plain version,
-and times it at 1024 channels.  It prints each run's JSON line, a table
+and times it at 1024 channels.  It prints each run's log (its build,
+each kernel's check and times, K2's and K5's phase split where the
+tree has it) and JSON line, a table
 of each row's device µs a launch (and, where the row has them, the
 plain version's and the library call's) across the runs, and the
 card's name and power limit as `nvidia-smi` gives them.
@@ -39,8 +41,9 @@ def main() -> int:
         if out.returncode != 0:
             print(out.stdout + out.stderr, file=sys.stderr)
             return 1
-        *_, line, card = out.stdout.strip().splitlines()
-        print(line, flush=True)
+        *logs, line, card = out.stdout.strip().splitlines()
+        print(f"# run {len(runs) + 1}: {root}", *logs, line, sep="\n",
+              flush=True)
         runs.append({r["name"]: r for r in json.loads(line)["kernels"]})
     print(f"# device us a launch, {' / '.join(order)} ({card})")
     for name in runs[0]:

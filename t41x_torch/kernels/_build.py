@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Every `t41x_torch/csrc/*.cu` is compiled by `nvcc` for Hopper
-(`sm_90a`) into one shared library with a plain C interface, loaded
-with `ctypes`.  The build runs at the first CUDA use, never at import
-(the CPU tests import every module on machines without `nvcc`), and
+(`sm_90a`), one process a source, all at once, and linked into one
+shared library with a plain C interface, loaded with `ctypes`.  The
+build runs at the first CUDA use, never at import (the CPU tests
+import every module on machines without `nvcc`), and
 lands in `t41x_torch/build/` under a name keyed by the sources and the
 flags, so a changed source rebuilds.  No `--use_fast_math`: the NCO
 `sincosf` and the AGC `log10f` need full accuracy.
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-         "-shared", "-Xcompiler", "-fPIC"]
+         "-Xcompiler", "-fPIC"]
 
 _lib = None
 build_seconds = None  # wall time of the last build or load, for reports
@@ -58,14 +59,24 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
+        # one nvcc a source, all at once, then one link
+        objs = [tmp.with_suffix(f".{f.stem}.o") for f in sources]
+        procs = [subprocess.Popen(
+            [_nvcc(), *FLAGS, "-c", *(["-Xptxas", "-v"] if verbose else []),
+             "-o", str(o), str(f)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for f, o in zip(sources, objs)]
+        logs = [(p, p.communicate()[0]) for p in procs]
+        res = subprocess.run([_nvcc(), *FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        failed = [log for p, log in logs if p.returncode != 0]
+        if failed or res.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)
+                               + f"\n{res.stdout}\n{res.stderr}")
         if verbose:
-            print(res.stdout + res.stderr)
+            print("".join(log for _, log in logs))
         os.replace(tmp, out)
     _lib = ctypes.CDLL(str(out))
     build_seconds = time.perf_counter() - t0

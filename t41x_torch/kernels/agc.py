@@ -2,13 +2,16 @@
 
 K2 ports `t41x.kernels.agc_pallas.agc_block_pallas`: |x|, look-ahead
 delay, sliding-window peak, the WDSP gain recurrence, gain curve and
-delayed multiply in one launch (`t41x_torch/csrc/agc.cu`).  Its plain
-version is the scan form of `t41x_torch.dsp.agc.agc_apply`.  The new
-delay line and its magnitudes are formed here, as the TPU wrapper does.
+delayed multiply in one launch (`t41x_torch/csrc/agc.cu`), which also
+writes the new delay line and its magnitudes.  Its plain version is the
+scan form of `t41x_torch.dsp.agc.agc_apply`.
 
 K5 ports `agc_scan_pallas`: the gain recurrence alone over precomputed
 ring-max and |out| streams, which `agc_apply` runs for blocks shorter
 than the delay line.  Its plain version is `dsp.agc.gain_scan`.
+
+`agc_block_phases` and `agc_scan_phases` launch the same kernels with
+`clock64` stamps per phase, for measurement (`phase_split`).
 """
 
 from __future__ import annotations
@@ -23,8 +26,16 @@ from t41x_torch.kernels import _build
 
 _P, _I = _build.PTR, _build.INT
 _FPARAMS = ctypes.POINTER(ctypes.c_float)
-_ARGS = [_P] * 10 + [_I] * 3 + [_FPARAMS] + [_I] * 2 + [_P] * 9
+_ARGS = [_P] * 10 + [_I] * 3 + [_FPARAMS] + [_I] * 2 + [_P] * 11
 _SCAN_ARGS = [_P] * 9 + [_I] * 2 + [_FPARAMS] + [_I] * 2 + [_P] * 9
+# the phases variants: a stamps buffer before the stream
+_PHASE_ARGS, _SCAN_PHASE_ARGS = _ARGS + [_P], _SCAN_ARGS + [_P]
+# what each row of stamps holds: clock64 cycles per phase, then the
+# block's total cycles and nanoseconds (agc.cu)
+K2_PHASES = ("staging", "window peak", "recurrence",
+             "gain curve and output")
+K5_PHASES = ("staging", "recurrence", "store")
+_CB, _SCAN_CB = 8, 8  # channels per thread block of K2, K5 (agc.cu)
 _FLOAT_FIELDS = ("attack_mult", "decay_mult", "fast_decay_mult",
                  "fast_backmult", "onemfast_backmult", "hang_backmult",
                  "onemhang_backmult", "hang_decay_mult", "out_target",
@@ -47,18 +58,22 @@ def agc_block(p: AGCParams, st: AGCState, x: torch.Tensor):
     (N >= attack_buffsize).  st: AGCState; x: (..., N) complex64.
     Returns (new AGCState, y).  CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
+    _check_block(p, x)
+    if not x.is_cuda:
+        return agc_block_plain(p, st, x)
+    return _launch(p, st, x)
+
+
+def _check_block(p: AGCParams, x: torch.Tensor):
     n, b = x.shape[-1], p.attack_buffsize
     if n < b:
         raise ValueError(f"agc_block needs N >= attack_buffsize ({n} < {b})")
     if p.mode == 0:
         raise ValueError("agc_block: AGC mode 0 (off) is a fixed gain, "
                          "use agc_apply")
-    if not x.is_cuda:
-        return agc_block_plain(p, st, x)
-    return _launch(p, st, x)
 
 
-def _launch(p: AGCParams, st: AGCState, x: torch.Tensor):
+def _launch(p: AGCParams, st: AGCState, x: torch.Tensor, stamps=None):
     n, b = x.shape[-1], p.attack_buffsize
     dev = x.device
     lead = tuple(x.shape[:-1])
@@ -75,16 +90,21 @@ def _launch(p: AGCParams, st: AGCState, x: torch.Tensor):
             for f in ("hang_counter", "decay_type", "state")]
 
     y = torch.empty_like(x)
+    new_ring = torch.empty(lead + (b,), dtype=c64, device=dev)
+    new_abs = torch.empty(lead + (b,), dtype=f32, device=dev)
     outs = [torch.empty(lead, dtype=f32, device=dev) for _ in range(4)] \
         + [torch.empty(lead, dtype=i32, device=dev) for _ in range(3)]
+    name, args, extra = (("t41x_agc_block", _ARGS, ()) if stamps is None else
+                         ("t41x_agc_block_phases", _PHASE_ARGS,
+                          (stamps.data_ptr(),)))
     _build.launch(
-        "t41x_agc_block", _ARGS, x.data_ptr(), ring.data_ptr(),
-        abs_ring.data_ptr(), *(t.data_ptr() for t in fs + ints), c, n, b,
-        _fparams(p), p.hang_counter_init, p.hang_enable, y.data_ptr(),
-        *(t.data_ptr() for t in outs), _build.stream_of(x))
+        name, args, x.data_ptr(), ring.data_ptr(), abs_ring.data_ptr(),
+        *(t.data_ptr() for t in fs + ints), c, n, b, _fparams(p),
+        p.hang_counter_init, p.hang_enable, y.data_ptr(),
+        new_ring.data_ptr(), new_abs.data_ptr(),
+        *(t.data_ptr() for t in outs), *extra, _build.stream_of(x))
     agc_block.launches += 1
-    new_ring = x[..., n - b:].contiguous()
-    return AGCState(new_ring, new_ring.abs(), *outs), y
+    return AGCState(new_ring, new_abs, *outs), y
 
 
 agc_block.launches = 0  # CUDA kernel launches
@@ -112,7 +132,7 @@ def agc_scan(p: AGCParams, carry, rm_t: torch.Tensor, ao_t: torch.Tensor):
 
 
 def _scan_launch(p: AGCParams, carry, rm_t: torch.Tensor,
-                 ao_t: torch.Tensor):
+                 ao_t: torch.Tensor, stamps=None):
     n, lead = rm_t.shape[0], tuple(rm_t.shape[1:])
     dev = rm_t.device
     c = math.prod(lead)
@@ -127,13 +147,55 @@ def _scan_launch(p: AGCParams, carry, rm_t: torch.Tensor,
     vseq = torch.empty((n,) + lead, dtype=f32, device=dev)
     outs = [torch.empty(lead, dtype=f32 if i < 4 else i32, device=dev)
             for i in range(7)]
+    name, args, extra = (("t41x_agc_scan", _SCAN_ARGS, ()) if stamps is None
+                         else ("t41x_agc_scan_phases", _SCAN_PHASE_ARGS,
+                               (stamps.data_ptr(),)))
     _build.launch(
-        "t41x_agc_scan", _SCAN_ARGS, rm.data_ptr(), ao.data_ptr(),
+        name, args, rm.data_ptr(), ao.data_ptr(),
         *(t.data_ptr() for t in ins), c, n, _fparams(p), p.hang_counter_init,
         p.hang_enable, vseq.data_ptr(), *(t.data_ptr() for t in outs),
-        _build.stream_of(rm))
+        *extra, _build.stream_of(rm))
     agc_scan.launches += 1
     return tuple(outs), vseq
 
 
 agc_scan.launches = 0  # CUDA kernel launches
+
+
+def _stamps(channels: int, per_block: int, rows: int, device):
+    blocks = -(-channels // per_block)
+    return torch.zeros(blocks, rows, dtype=torch.int64, device=device)
+
+
+def agc_block_phases(p: AGCParams, st: AGCState, x: torch.Tensor):
+    """K2 on CUDA tensors with its phase split: (new AGCState, y, stamps),
+    stamps (blocks, 6) as `phase_split` reads them with `K2_PHASES`."""
+    _check_block(p, x)
+    stamps = _stamps(math.prod(x.shape[:-1]), _CB, len(K2_PHASES) + 2,
+                     x.device)
+    new_st, y = _launch(p, st, x, stamps)
+    return new_st, y, stamps
+
+
+def agc_scan_phases(p: AGCParams, carry, rm_t: torch.Tensor,
+                    ao_t: torch.Tensor):
+    """K5 on CUDA tensors with its phase split: (final carry, volts_seq,
+    stamps), stamps (blocks, 5) as `phase_split` reads them with
+    `K5_PHASES`."""
+    stamps = _stamps(math.prod(rm_t.shape[1:]), _SCAN_CB,
+                     len(K5_PHASES) + 2, rm_t.device)
+    new_carry, vseq = _scan_launch(p, carry, rm_t, ao_t, stamps)
+    return new_carry, vseq, stamps
+
+
+def phase_split(stamps: torch.Tensor, names) -> dict:
+    """Mean µs a block spends in each phase, from the stamps of a phases
+    launch; the SM clock (cycles a ns) from the blocks' total cycles over
+    their nanoseconds.  Also the block's mean µs and that clock."""
+    s = stamps.to(torch.float64).cpu()
+    ghz = float(s[:, -2].sum() / s[:, -1].sum())
+    out = {nm: float(s[:, i].mean()) / ghz / 1e3
+           for i, nm in enumerate(names)}
+    out["block"] = float(s[:, -1].mean()) / 1e3
+    out["sm_ghz"] = ghz
+    return out

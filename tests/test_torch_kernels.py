@@ -113,15 +113,31 @@ def _zoom_state(zoom, ch, device=None):
     return st.iir, st.dec
 
 
-def _agc_stream(rng, ch, n, blocks):
-    """K5's inputs for `blocks` pieces of n samples at K2's stimulus
-    levels: the AGC params, a fresh carry and, per piece, the time-major
-    ring-max and |out| streams as agc_apply forms them."""
-    p = tagc.agc_params(2)
-    st = tagc.agc_state(p, (ch,))
+# a near-silence, a burst, a deeper silence, a moderate level: from
+# random states (_agc_rand_state) these reach all five AGC states
+_AGC_LEVELS = (0.001, 0.3, 0.0005, 0.05)
+
+
+def _agc_rand_state(rng, p, ch):
+    """A random AGCState on the CPU: any of the five states, live hang
+    counters, either decay type, volts from min_volts up."""
+    ring = _cx(rng, ch, p.attack_buffsize, scale=0.1)
+    u = lambda lo, hi: T(rng.uniform(lo, hi, ch).astype(np.float32))  # noqa
+    ri = lambda hi: T(rng.integers(0, hi, ch).astype(np.int32))  # noqa
+    return tagc.AGCState(T(ring), T(np.abs(ring)), u(p.min_volts, 1.5),
+                         u(0.0, 1.5), u(0.0, 0.5), u(0.0, 0.1), ri(300),
+                         ri(2), ri(5))
+
+
+def _agc_stream(rng, ch, n, blocks, mode=2):
+    """K5's inputs for `blocks` pieces of n samples: the AGC params, a
+    random carry and, per piece, the time-major ring-max and |out|
+    streams as agc_apply forms them."""
+    p = tagc.agc_params(mode)
+    st = _agc_rand_state(rng, p, ch)
     pieces = []
     for b in range(blocks):
-        x = T(_cx(rng, ch, n, scale=(0.02, 0.5, 0.005, 0.1)[b % 4]))
+        x = T(_cx(rng, ch, n, scale=_AGC_LEVELS[b % 4]))
         full = torch.cat([st.ring, x], dim=-1)
         abs_full = torch.cat([st.abs_ring, x.abs()], dim=-1)
         rm = tagc._sliding_window_max(abs_full, p.attack_buffsize)[
@@ -392,35 +408,62 @@ def test_frontend_zoom_kernel_matches_plain_on_card(cuda, zoom, fmt, ch):
     assert TFront.launches == n0 + BLOCKS
 
 
-@pytest.mark.gpu
-def test_agc_scan_kernel_matches_plain_on_card(cuda):
-    rng = np.random.default_rng(39)
-    p, carry, pieces = _agc_stream(rng, 130, 64, 4)
-    ck = cp = tuple(c.to(cuda) for c in carry)
-    n0 = tk_agc.agc_scan.launches
-    for rm, ao in pieces:
-        rm, ao = rm.to(cuda), ao.to(cuda)
-        ck, vk = tk_agc.agc_scan(p, ck, rm, ao)
-        cp, vp = tk_agc.agc_scan_plain(p, cp, rm, ao)
-        _close(vk, vp.cpu(), 1e-6, 1e-7, "volts")
-        for a, r in zip(ck, cp):
-            _close(a, r.cpu(), 1e-6, 1e-7, "carry")
-    assert tk_agc.agc_scan.launches == n0 + len(pieces)
+def _equal(got, ref, msg=""):
+    """Bit for bit (K2 and K5 round every operation as their plain
+    versions do)."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape, msg
+    assert torch.equal(got, ref), (
+        f"{msg}: max |d| {float((got - ref).abs().max())}")
+
+
+# ragged around K2's and K5's 8 channels per thread block
+AGC_CHANNELS = [1, 7, 130, 1024]
 
 
 @pytest.mark.gpu
-def test_agc_kernel_matches_plain_on_card(cuda):
-    rng = np.random.default_rng(32)
-    ch = 130
-    p = tagc.agc_params(2)
-    sk = sp = tagc.agc_state(p, (ch,), cuda)
-    for b in range(BLOCKS):
-        x = T(_cx(rng, ch, 256, scale=(0.02, 0.5, 0.005)[b])).to(cuda)
+@pytest.mark.parametrize("ch", AGC_CHANNELS)
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_agc_scan_kernel_matches_plain_on_card(cuda, mode, ch):
+    """K5 at piece lengths 1, 64 and 95 (agc_apply sends it blocks
+    shorter than the 96-sample delay line), from random states."""
+    rng = np.random.default_rng(39 + mode)
+    for n in (1, 64, 95):
+        p, carry, pieces = _agc_stream(rng, ch, n, 4, mode)
+        ck = cp = tuple(c.to(cuda) for c in carry)
+        n0 = tk_agc.agc_scan.launches
+        for rm, ao in pieces:
+            rm, ao = rm.to(cuda), ao.to(cuda)
+            ck, vk = tk_agc.agc_scan(p, ck, rm, ao)
+            cp, vp = tk_agc.agc_scan_plain(p, cp, rm, ao)
+            _equal(vk, vp, f"volts n {n}")
+            for i, (a, r) in enumerate(zip(ck, cp)):
+                _equal(a, r, f"carry[{i}] n {n}")
+        assert tk_agc.agc_scan.launches == n0 + len(pieces)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch", AGC_CHANNELS)
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_agc_kernel_matches_plain_on_card(cuda, mode, ch):
+    """K2 from random states, bit for bit: y, the seven states, and the
+    new delay line (x's newest 96 samples) with its magnitudes, which
+    the kernel writes itself."""
+    rng = np.random.default_rng(32 + mode)
+    p = tagc.agc_params(mode)
+    b = p.attack_buffsize
+    sk = sp = tagc.AGCState(*(t.to(cuda)
+                              for t in _agc_rand_state(rng, p, ch)))
+    n0 = tk_agc.agc_block.launches
+    for blk in range(BLOCKS):
+        x = T(_cx(rng, ch, 256, scale=_AGC_LEVELS[blk])).to(cuda)
         sk, yk = tk_agc.agc_block(p, sk, x)
         sp, yp = tk_agc.agc_block_plain(p, sp, x)
-        _close(yk, yp.cpu(), 1e-6, 1e-7, "y")
+        _equal(yk, yp, "y")
         for f in sp._fields:
-            _close(getattr(sk, f), getattr(sp, f).cpu(), 1e-6, 1e-7, f)
+            _equal(getattr(sk, f), getattr(sp, f), f)
+        _equal(sk.ring, x[..., -b:], "ring")
+        _equal(sk.abs_ring, sk.ring.abs(), "abs_ring")
+    assert tk_agc.agc_block.launches == n0 + BLOCKS
 
 
 @pytest.mark.gpu
