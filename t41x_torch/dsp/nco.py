@@ -9,6 +9,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,13 +21,19 @@ from t41x_torch import constants as C
 FREQ_ADJ_FACTOR = 1.1
 
 
+@functools.cache
+def _fs4_pattern(n: int, device: torch.device) -> torch.Tensor:
+    """j**n for n < N, made once per block length and device (a host
+    tensor uploaded on every call would wait for the stream)."""
+    return torch.tensor([1, 1j, -1, -1j], dtype=torch.complex64).repeat(
+        n // 4).to(device)
+
+
 def fs4_shift(x: torch.Tensor) -> torch.Tensor:
     """Multiply by j**n along the last axis (block length divisible by 4)."""
     n = x.shape[-1]
     assert n % 4 == 0
-    pattern = torch.tensor([1, 1j, -1, -1j], dtype=torch.complex64,
-                           device=x.device)
-    return x * pattern.repeat(n // 4)
+    return x * _fs4_pattern(n, x.device)
 
 
 def nco_phase_inc(freq_hz: torch.Tensor, fs: float = C.SAMPLE_RATE):

@@ -118,3 +118,25 @@ def cuda_input(name: str, t, dtype, shape: tuple, device):
             f"{name}: expected a {dtype} tensor of shape {tuple(shape)} on "
             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     return t.contiguous()
+
+
+def stamp_buffer(channels: int, per_block: int, rows: int, device):
+    """A zeroed (blocks, rows) int64 buffer for a kernel's `clock64`
+    stamps: one row a thread block of `per_block` channels."""
+    import torch
+    blocks = -(-channels // per_block)
+    return torch.zeros(blocks, rows, dtype=torch.int64, device=device)
+
+
+def phase_split(stamps, names) -> dict:
+    """Mean µs a block spends in each phase, from the stamps of a phases
+    launch; the SM clock (cycles a ns) from the blocks' total cycles over
+    their nanoseconds.  Also the block's mean µs and that clock."""
+    import torch
+    s = stamps.to(torch.float64).cpu()
+    ghz = float(s[:, -2].sum() / s[:, -1].sum())
+    out = {nm: float(s[:, i].mean()) / ghz / 1e3
+           for i, nm in enumerate(names)}
+    out["block"] = float(s[:, -1].mean()) / 1e3
+    out["sm_ghz"] = ghz
+    return out

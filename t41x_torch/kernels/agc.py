@@ -23,6 +23,8 @@ import torch
 
 from t41x_torch.dsp.agc import AGCParams, AGCState, agc_apply, gain_scan
 from t41x_torch.kernels import _build
+# chip_smoke.py reads phase_split here, as in trees before it moved
+from t41x_torch.kernels._build import phase_split  # noqa: F401
 
 _P, _I = _build.PTR, _build.INT
 _FPARAMS = ctypes.POINTER(ctypes.c_float)
@@ -162,17 +164,12 @@ def _scan_launch(p: AGCParams, carry, rm_t: torch.Tensor,
 agc_scan.launches = 0  # CUDA kernel launches
 
 
-def _stamps(channels: int, per_block: int, rows: int, device):
-    blocks = -(-channels // per_block)
-    return torch.zeros(blocks, rows, dtype=torch.int64, device=device)
-
-
 def agc_block_phases(p: AGCParams, st: AGCState, x: torch.Tensor):
     """K2 on CUDA tensors with its phase split: (new AGCState, y, stamps),
     stamps (blocks, 6) as `phase_split` reads them with `K2_PHASES`."""
     _check_block(p, x)
-    stamps = _stamps(math.prod(x.shape[:-1]), _CB, len(K2_PHASES) + 2,
-                     x.device)
+    stamps = _build.stamp_buffer(math.prod(x.shape[:-1]), _CB,
+                                 len(K2_PHASES) + 2, x.device)
     new_st, y = _launch(p, st, x, stamps)
     return new_st, y, stamps
 
@@ -182,20 +179,7 @@ def agc_scan_phases(p: AGCParams, carry, rm_t: torch.Tensor,
     """K5 on CUDA tensors with its phase split: (final carry, volts_seq,
     stamps), stamps (blocks, 5) as `phase_split` reads them with
     `K5_PHASES`."""
-    stamps = _stamps(math.prod(rm_t.shape[1:]), _SCAN_CB,
-                     len(K5_PHASES) + 2, rm_t.device)
+    stamps = _build.stamp_buffer(math.prod(rm_t.shape[1:]), _SCAN_CB,
+                                 len(K5_PHASES) + 2, rm_t.device)
     new_carry, vseq = _scan_launch(p, carry, rm_t, ao_t, stamps)
     return new_carry, vseq, stamps
-
-
-def phase_split(stamps: torch.Tensor, names) -> dict:
-    """Mean µs a block spends in each phase, from the stamps of a phases
-    launch; the SM clock (cycles a ns) from the blocks' total cycles over
-    their nanoseconds.  Also the block's mean µs and that clock."""
-    s = stamps.to(torch.float64).cpu()
-    ghz = float(s[:, -2].sum() / s[:, -1].sum())
-    out = {nm: float(s[:, i].mean()) / ghz / 1e3
-           for i, nm in enumerate(names)}
-    out["block"] = float(s[:, -1].mean()) / 1e3
-    out["sm_ghz"] = ghz
-    return out

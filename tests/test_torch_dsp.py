@@ -84,6 +84,25 @@ def test_fs4_and_nco_stream_like_t41x():
         _close(tph, jph, 1e-5, 1e-6)
 
 
+@pytest.mark.parametrize("n", [4, 2048])
+def test_fs4_pattern_made_once_per_device(n):
+    """Two calls multiply by one cached j**n tensor (no host upload a
+    call), and the values equal t41x's exactly."""
+    rng = np.random.default_rng(30)
+    tnco._fs4_pattern.cache_clear()
+    outs = []
+    for _ in range(2):
+        x = _cx(rng, CH, n)
+        outs.append(tnco.fs4_shift(T(x)))
+        np.testing.assert_array_equal(outs[-1].numpy(),
+                                      np.asarray(jnco.fs4_shift(
+                                          jnp.asarray(x))))
+    info = tnco._fs4_pattern.cache_info()
+    assert (info.misses, info.hits) == (1, 1)
+    assert tnco._fs4_pattern(n, torch.device("cpu")) is \
+        tnco._fs4_pattern(n, outs[0].device)
+
+
 def test_biquad_chunked_streams_like_t41x():
     rng = np.random.default_rng(4)
     b, a = jfd.dc_block_biquad()

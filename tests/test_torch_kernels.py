@@ -409,8 +409,8 @@ def test_frontend_zoom_kernel_matches_plain_on_card(cuda, zoom, fmt, ch):
 
 
 def _equal(got, ref, msg=""):
-    """Bit for bit (K2 and K5 round every operation as their plain
-    versions do)."""
+    """Bit for bit (K2, K5, K6 and K7 round every operation as their
+    plain versions do)."""
     assert got.dtype == ref.dtype and got.shape == ref.shape, msg
     assert torch.equal(got, ref), (
         f"{msg}: max |d| {float((got - ref).abs().max())}")
@@ -522,38 +522,113 @@ def test_os_filter_kernel_follows_each_chains_passband(cuda):
         del chain, W
 
 
+# ragged around K6's and K7's 8 channels per thread block
+SERIAL_CHANNELS = [1, 7, 33, 130, 1024]
+
+
+def _sam_rand_state(rng, p, ch):
+    """Phases outside [0, 2 pi), omega2 inside and at both clips."""
+    u = lambda lo, hi: rng.uniform(lo, hi, ch).astype(np.float32)  # noqa
+    om2 = u(p.omega_min, p.omega_max)
+    om2[::3], om2[1::3] = p.omega_max, p.omega_min
+    return tsam.SAMState(*map(T, (u(-8.0, 20.0), u(-1.0, 1.0), om2,
+                                  u(-0.5, 0.5), u(0.0, 1.0))))
+
+
 @pytest.mark.gpu
-def test_sam_kernel_matches_plain_on_card(cuda):
+@pytest.mark.parametrize("n", [64, 256, tk_sam._MAX_N])
+@pytest.mark.parametrize("fade", [0, 1])
+@pytest.mark.parametrize("ch", SERIAL_CHANNELS)
+def test_sam_kernel_matches_plain_on_card(cuda, ch, fade, n):
+    """K6 bit for bit from random carried states, n up to the largest
+    block its shared memory holds."""
     rng = np.random.default_rng(35)
-    ch = 130
-    p = tsam.sam_params()
-    sk = sp = tsam.sam_state((ch,), cuda)
+    p = tsam.sam_params(fade_leveler=fade)
+    sk = sp = tsam.SAMState(*(t.to(cuda)
+                              for t in _sam_rand_state(rng, p, ch)))
     n0 = tk_sam.sam_block.launches
     for b in range(BLOCKS):
-        y = T(_sam_y(rng, ch, b)).to(cuda)
+        t = (np.arange(n) + n * b) / 24000.0
+        y = np.exp(2j * np.pi * 120.0 * t) * (1.0 + 0.4 * np.cos(
+            2 * np.pi * 400.0 * t)) * np.linspace(0.5, 1.0, ch)[:, None]
+        y = T((y + _cx(rng, ch, n, scale=0.01)).astype(np.complex64)).to(
+            cuda)
         sk, ak = tk_sam.sam_block(p, sk, y)
         sp, ap = tk_sam.sam_block_plain(p, sp, y)
-        _close(ak, ap.cpu(), 1e-4, 1e-5, "audio")
+        _equal(ak, ap, "audio")
         for f in sp._fields:
-            _close(getattr(sk, f), getattr(sp, f).cpu(), 1e-4, 1e-5, f)
+            _equal(getattr(sk, f), getattr(sp, f), f)
     assert tk_sam.sam_block.launches == n0 + BLOCKS
 
 
 @pytest.mark.gpu
+def test_sam_kernel_wide_pll_range_on_card(cuda):
+    """A PLL range past Nyquist (omega up to 7.85 rad a sample): from
+    omega2 at its clips, phase + fil passes 4 pi and the kernel takes its
+    fmodf path; still bit for bit."""
+    rng = np.random.default_rng(44)
+    ch, n = 130, 256
+    p = tsam.sam_params(omega_n=3000.0, pll_fmax=30000.0)
+    sk = sp = tsam.SAMState(*(t.to(cuda) for t in _sam_rand_state(
+        rng, p, ch)))._replace(fil_out=torch.full((ch,), 7.0, device=cuda))
+    for _ in range(BLOCKS):
+        y = T(_cx(rng, ch, n)).to(cuda)
+        sk, ak = tk_sam.sam_block(p, sk, y)
+        sp, ap = tk_sam.sam_block_plain(p, sp, y)
+        _equal(ak, ap, "audio")
+        for f in sp._fields:
+            _equal(getattr(sk, f), getattr(sp, f), f)
+
+
+@pytest.mark.gpu
+def test_sam_loop_ops_match_torch_on_card(cuda):
+    """K6's phase loop forms sin, cos and the detector's quotient without
+    a branch: sin and cos equal torch.sin and torch.cos for every float
+    in [0, 2 pi], and the quotient torch's division for 0 <= a <= b over
+    2^28 random pairs whose exponents span the fast range and beyond
+    (zeros, subnormals, equal operands among them)."""
+    top = int(np.float32(tsam._TWO_PI).view(np.int32))
+    chunk = 1 << 26
+    gen = torch.Generator(device=cuda).manual_seed(45)
+    for lo in range(0, top + 1, chunk):
+        x = torch.arange(lo, min(lo + chunk, top + 1), dtype=torch.int32,
+                         device=cuda).view(torch.float32)
+        n = x.numel()
+        b = torch.exp2(torch.empty(n, device=cuda).uniform_(
+            -126.0, 127.0, generator=gen)).clamp_(max=3e38)
+        a = b * torch.rand(n, generator=gen, device=cuda)
+        a[::97] = 0.0
+        a[1::97] = b[1::97]
+        a[2::97] = torch.rand(a[2::97].shape, generator=gen,
+                              device=cuda) * 1e-39
+        s, c, q = tk_sam.loop_ops(x, a, b)
+        _equal(s, torch.sin(x), f"sin from {lo:#x}")
+        _equal(c, torch.cos(x), f"cos from {lo:#x}")
+        _equal(q, a / b, f"quotient, chunk from {lo:#x}")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("notch", [False, True])
-def test_xanr_kernel_matches_plain_on_card(cuda, notch):
+@pytest.mark.parametrize("ch", SERIAL_CHANNELS)
+def test_xanr_kernel_matches_plain_on_card(cuda, ch, notch):
+    """K7 bit for bit (it sums in torch.sum's order on the card), from
+    random weights and history, the leak index at its fixed points."""
     rng = np.random.default_rng(36)
-    ch = 130
     p = tnr.XanrParams(notch=notch)
     sk = sp = tnr.xanr_state(p, (ch,), cuda)._replace(
-        lidx=T(_lidx0(ch)).to(cuda))
+        lidx=T(_lidx0(ch)).to(cuda),
+        w=T((rng.standard_normal((ch, 64)) * 0.01).astype(np.float32)).to(
+            cuda),
+        dline=T(_audio(rng, ch)[:, :80]).to(cuda))
+    n0 = tk_xanr.xanr_block.launches
     for b in range(BLOCKS):
         x = T(_audio(rng, ch)).to(cuda)
         sk, yk = tk_xanr.xanr_block(p, sk, x)
         sp, yp = tk_xanr.xanr_block_plain(p, sp, x)
-        _close(yk, yp.cpu(), 1e-4, 1e-5, "y")
+        _equal(yk, yp, "y")
         for f in sp._fields:
-            _close(getattr(sk, f), getattr(sp, f).cpu(), 1e-4, 1e-5, f)
+            _equal(getattr(sk, f), getattr(sp, f), f)
+    assert tk_xanr.xanr_block.launches == n0 + BLOCKS
 
 
 @pytest.mark.gpu
