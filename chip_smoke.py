@@ -6,8 +6,9 @@
 
 The second form runs phases 1 and 2 alone on the `t41x_torch` package
 in ROOT (another checkout, e.g. a parent commit unpacked with `git
-archive`) and prints the kernels' JSON line and the card's line;
-`kernel_ab.py` runs it for several checkouts in turns.
+archive`), profiles the rx and headless blocks as phase 4 does, and
+prints the kernels' JSON line and the card's line; `kernel_ab.py` runs
+it for several checkouts in turns.
 
 Phases, each of which raises on failure (so no result line follows a
 failure):
@@ -24,12 +25,15 @@ failure):
    flushed before each, so that its inputs come from device memory), its
    wrapper and its plain version (CUDA events, median of 25 runs after
    warm-up, 5 for the plain versions of the per-sample recurrences), the
-   plain version's device time for K1 and K4, and for K4 the one PyTorch
-   call that computes the same function (the cuBLAS product on the
-   concatenated input; no other kernel has one).  K2, K5, K6, K7 and
+   plain version's device time for K1, K3 and K4, and for K3 and K4 the
+   one PyTorch call that computes the same function (K3: a stride-8
+   `conv_transpose1d` with the two stages' composed taps; K4: the cuBLAS
+   product on the concatenated input; no other kernel has one).  K3 runs
+   on a contiguous row and on the real part of a complex64 row, as the
+   chain calls it, and is timed on the latter.  K2, K5, K6, K7 and
    K8 must equal their plain versions bit for bit (K2 and K5 from random
    carried states that reach all five AGC states), and the `clock64`
-   split per phase of K2, K5, K6 and K7 (cold and warm) goes to the
+   split per phase of K2, K3, K5, K6 and K7 (cold and warm) goes to the
    log.  Each kernel's bound is the larger of the operations its
    function needs over the card's fp32 peak (67 TFLOP/s) and its bytes
    (each input read once, each output written once) over its memory
@@ -54,7 +58,8 @@ failure):
    samples per second): the rx spec at 1024 and 4096 channels, the
    headless spec, the radio's default spec, sam, Kim and LMS NR and the
    notch at 1024; then, for the same seven specs at 1024 channels, the
-   device time per block of each CUDA kernel under `torch.profiler`.
+   device time per block of each CUDA kernel under `torch.profiler`, and
+   the number of device kernels a block.
 
 It prints the kernels' JSON line (per kernel: its launches and launches
 per block on the main paths, max |err|, device ms a launch, the
@@ -196,6 +201,17 @@ def k3_flops(n_ch: int, n: int = 256, t1: int = 48, t2: int = 32) -> int:
     return n_ch * (2 * (2 * n * (t1 // 2) + 8 * n * (t2 // 4)) + 8 * n)
 
 
+def k3_library_taps(h1: np.ndarray, h2: np.ndarray):
+    """K3's two stages (x2 with taps h1, then x4 with h2) as one x8
+    interpolator: the composed taps h8 = h2 * (h1 zero-stuffed by 4), in
+    float64, and the input-rate history that a stride-8 transposed
+    convolution needs for them, (len(h8) - 1) // 8 samples."""
+    stuffed = np.zeros(4 * (len(h1) - 1) + 1, np.float64)
+    stuffed[::4] = h1
+    h8 = np.convolve(np.asarray(h2, np.float64), stuffed)
+    return h8, (len(h8) - 1) // 8
+
+
 # per-element operation counts of the other kernels, from their plain
 # versions' arithmetic (their bound is their bytes by a wide margin)
 OPS_PER_ELEMENT = {
@@ -314,6 +330,7 @@ def card_line() -> str:
 
 def main(argv: list[str]) -> int:
     import torch
+    import torch.nn.functional as F
 
     root = None  # --kernels ROOT: phases 1 and 2 on ROOT's t41x_torch
     if len(argv) == 2 and argv[0] == "--kernels":
@@ -600,10 +617,11 @@ def main(argv: list[str]) -> int:
         OPS_PER_ELEMENT["K5"] * rm.numel(), (c_k, rm, ao),
         kagc.agc_scan(ap, c_k, rm, ao), plain_reps=REPS_PLAIN)
 
-    def log_phases(name, fn, names, loop, steps):
+    def log_phases(name, fn, names, loop=None, steps=1):
         """Where a kernel's time goes: clock64 stamps per phase, mean over
         the blocks of 10 launches, cold (L2 flushed before each) and
-        warm; the `loop` phase also in cycles a step."""
+        warm; the `loop` phase, where there is one, also in cycles a
+        step."""
         for temp in ("cold", "warm"):
             fn()
             stamps = []
@@ -613,11 +631,11 @@ def main(argv: list[str]) -> int:
                 stamps.append(fn())
             split = kagc.phase_split(torch.cat(stamps), names)
             ghz = split["sm_ghz"]
-            per_step = split[loop] * 1e3 * ghz / steps
+            step = (f"; {loop} {split[loop] * 1e3 * ghz / steps:.1f} cycles "
+                    f"a step" if loop else "")
             log(f"# {name} phases {temp}, us a block: " + ", ".join(
                 f"{k} {split[k]:.3f}" for k in (*names, "block"))
-                + f"; {loop} {per_step:.1f} cycles a step at {ghz:.3f} GHz "
-                f"({N_CH} channels, {card})")
+                + f"{step} at {ghz:.3f} GHz ({N_CH} channels, {card})")
 
     if hasattr(kagc, "agc_block_phases"):
         log_phases("K2", lambda: kagc.agc_block_phases(ap, st_k, x2)[2],
@@ -625,22 +643,51 @@ def main(argv: list[str]) -> int:
         log_phases("K5", lambda: kagc.agc_scan_phases(ap, c_k, rm, ao)[2],
                    kagc.K5_PHASES, "recurrence", AGC_PIECE)
 
+    # K3 on a contiguous row and, as the chain calls it, on the real part
+    # of a complex64 block (`y.real`, element stride 2).  The imaginary
+    # parts come from a generator of their own, so the draws of `gen`, and
+    # the main paths' stimuli, stay those of earlier trees.
     fi = kint.FusedInterp(rx.hi1, rx.hi2)
     vol = torch.linspace(0.5, 2.0, N_CH, device=dev)
-    hk = hp = (torch.zeros(N_CH, fi.sub1 - 1, device=dev),
-               torch.zeros(N_CH, fi.sub2 - 1, device=dev))
+    k3_gen = torch.Generator(device=dev).manual_seed(13)
+    z0 = (torch.zeros(N_CH, fi.sub1 - 1, device=dev),
+          torch.zeros(N_CH, fi.sub2 - 1, device=dev))
+    hk = hs = hp = z0
     err = 0.0
     for b in range(3):
         a = torch.randn(N_CH, C.AUDIO_BLOCK, generator=gen, device=dev) * 0.4
+        ar = torch.complex(a, torch.randn(N_CH, C.AUDIO_BLOCK, generator=k3_gen,
+                                          device=dev)).real
         *hk, y_k = fi.apply(a, *hk, vol)
+        *hs, y_s = fi.apply(ar, *hs, vol)
         *hp, y_p = fi.plain(a, *hp, vol)
-        err = max(err, close("K3 y", y_k, y_p, 2e-5, 2e-6))
-        close("K3 int1", hk[0], hp[0], 1e-6, 1e-7)
-        close("K3 int2", hk[1], hp[1], 2e-5, 2e-6)
-    row("K3 interp", K3, lambda: fi.apply(a, *hk, vol),
-        lambda: fi.plain(a, *hk, vol), err, (2e-5, 2e-6),
+        for form, (h_k, yk) in (("", (hk, y_k)), (" y.real", (hs, y_s))):
+            err = max(err, close(f"K3{form} y", yk, y_p, 2e-5, 2e-6))
+            close(f"K3{form} int1", h_k[0], hp[0], 0.0, 0.0)
+            close(f"K3{form} int2", h_k[1], hp[1], 2e-5, 2e-6)
+    # the library call: the two stages and the volume are one linear x8
+    # interpolator y = h8 * (x zero-stuffed by 8), h8 = h2 * (h1 zero-
+    # stuffed by 4) of 47 * 4 + 1 + 32 - 1 = 220 taps, so one transposed
+    # convolution of stride 8 over the block and its 27 samples of 24 kHz
+    # history (cuDNN, fp32: TF32 is off); held against the plain version
+    # from zero histories, and timed without the scale
+    h8, hist = k3_library_taps(rx.hi1, rx.hi2)
+    w8 = torch.from_numpy(h8.astype(np.float32)).to(dev)[None, None]
+    xh = torch.cat([torch.zeros(N_CH, hist, device=dev), a], dim=-1)[:, None]
+    y_lib = F.conv_transpose1d(xh, w8, stride=C.DF)[
+        :, 0, C.DF * hist: C.DF * (hist + C.AUDIO_BLOCK)] * vol[:, None]
+    lib_err = close("K3 library call", y_lib, fi.plain(a, *z0, vol)[2], 2e-5,
+                    2e-6)
+    log(f"# K3 library call (conv_transpose1d, {len(h8)} taps, stride "
+        f"{C.DF}) vs plain from zero histories: max |err| {lib_err:.3g}")
+    row("K3 interp", K3, lambda: fi.apply(ar, *hs, vol),
+        lambda: fi.plain(ar, *hs, vol), err, (2e-5, 2e-6),
         k3_flops(N_CH, C.AUDIO_BLOCK, len(rx.hi1), len(rx.hi2)),
-        (a, hk, vol), fi.apply(a, *hk, vol))
+        (ar, hs, vol), fi.apply(ar, *hs, vol), plain_device=True,
+        library=lambda: F.conv_transpose1d(xh, w8, stride=C.DF))
+    if hasattr(kint, "interp_phases"):
+        log_phases("K3", lambda: kint.interp_phases(fi, ar, *hs, vol)[3],
+                   kint.K3_PHASES)
 
     W = rx.tensors["os_W"]
     # W's planes, packed once by the chain (a tree whose wrapper packs W
@@ -742,7 +789,35 @@ def main(argv: list[str]) -> int:
         OPS_PER_ELEMENT["K8"] * pw.numel(), (pw, g_k),
         knr.kim_gains(kp, g_k, pw))
 
+    def profile(name, blk, pr):
+        """Where the time goes on spec `name`: device time per block of
+        each CUDA kernel, by name, and the number of kernels a block,
+        under torch.profiler over 20 blocks after 5 warm-up blocks."""
+        chain = RxChain(ChainSpec(use_kernels=True, **SPECS[name][0]),
+                        device=dev)
+        st = [chain.init_state((N_CH,))]
+
+        def step():
+            st[0] = chain.block(pr, st[0], blk)[0]
+
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        per, wall = kernel_us(step, 20)
+        dev_us = {k: us * m for k, (us, m) in per.items()}
+        wall /= 20
+        log(f"# profile {name}: {N_CH} ch, device "
+            f"{sum(dev_us.values()):.1f} us/block in "
+            f"{sum(m for _, m in per.values())} kernels, of wall "
+            f"{wall * 1e6:.1f} us/block under the profiler ({card})")
+        for k, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"#   {us:10.1f} us/block  {k[:110]}")
+
     if root is not None:
+        # the flagship and headless blocks' kernels, for kernel_ab.py
+        blk, pr = rf_blocks(N_CH, 1)[0], params(N_CH)
+        for name in ("rx", "headless"):
+            profile(name, blk, pr)
         for r in rows:
             del r["blocks"]
         print(json.dumps({"kernels": rows}))
@@ -986,28 +1061,10 @@ def main(argv: list[str]) -> int:
             for use_kernels, n_blocks in ((True, 32), (False, 3)):
                 rate(name, SPECS[name][0], n_ch, use_kernels, n_blocks)
 
-    # where the time goes: device time per block of each CUDA kernel,
-    # by name, under torch.profiler over 20 blocks after 5 warm-up blocks
+    # where the time goes
     blk, pr = rf_blocks(N_CH, 1)[0], params(N_CH)
     for name in TIMED:
-        chain = RxChain(ChainSpec(use_kernels=True, **SPECS[name][0]),
-                        device=dev)
-        st = [chain.init_state((N_CH,))]
-
-        def step():
-            st[0] = chain.block(pr, st[0], blk)[0]
-
-        for _ in range(5):
-            step()
-        torch.cuda.synchronize()
-        per, wall = kernel_us(step, 20)
-        dev_us = {k: us * m for k, (us, m) in per.items()}
-        wall /= 20
-        log(f"# profile {name}: {N_CH} ch, device "
-            f"{sum(dev_us.values()):.1f} us/block of wall "
-            f"{wall * 1e6:.1f} us/block under the profiler ({card})")
-        for k, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
-            log(f"#   {us:10.1f} us/block  {k[:110]}")
+        profile(name, blk, pr)
 
     for r in rows:
         r["launches_per_block"] = (r["launches"] / r["blocks"]

@@ -14,13 +14,15 @@ and times it at 1024 channels.  It prints each run's log (its build,
 each kernel's check and times, the phase split of K2, K5, K6 and K7
 where the tree has it) and JSON line, a table
 of each row's device µs a launch (and, where the row has them, the
-plain version's and the library call's) across the runs, and the
-card's name and power limit as `nvidia-smi` gives them.
+plain version's and the library call's) across the runs, the number of
+device kernels a block on the rx and headless specs in each run, and
+the card's name and power limit as `nvidia-smi` gives them.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,7 +36,7 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     order = roots + roots[::-1]
-    runs = []
+    runs, kernels = [], {}
     for root in order:
         out = subprocess.run([sys.executable, str(SMOKE), "--kernels", root],
                              capture_output=True, text=True, timeout=900)
@@ -45,6 +47,10 @@ def main() -> int:
         print(f"# run {len(runs) + 1}: {root}", *logs, line, sep="\n",
               flush=True)
         runs.append({r["name"]: r for r in json.loads(line)["kernels"]})
+        for log in logs:
+            m = re.match(r"# profile (\w+): .* in (\d+) kernels", log)
+            if m:
+                kernels.setdefault(m.group(1), []).append(m.group(2))
     print(f"# device us a launch, {' / '.join(order)} ({card})")
     for name in runs[0]:
         for key, label in (("ms", ""), ("plain_device_ms", " plain"),
@@ -53,6 +59,8 @@ def main() -> int:
             if vals[0] is not None:
                 print(f"#   {name + label:32s} " + " / ".join(
                     "-" if v is None else f"{v * 1e3:.2f}" for v in vals))
+    for name, counts in kernels.items():
+        print(f"# device kernels a block, {name}: {' / '.join(counts)}")
     print(card)
     return 0
 

@@ -41,6 +41,42 @@ def _nvcc() -> str:
     return found
 
 
+def build(sources: list, name: str, verbose: bool = False) -> Path:
+    """Compile `sources` (.cu paths) and link them into
+    `BUILD_DIR/{name}_{key}.so`, keyed by the sources and the flags; an
+    existing one is reused.  Returns its path."""
+    key = hashlib.sha256()
+    for f in sources:
+        key.update(f.name.encode())
+        key.update(f.read_bytes())
+    key.update(" ".join(FLAGS).encode())
+    out = BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    # one nvcc a source, all at once, then one link
+    objs = [tmp.with_suffix(f".{f.stem}.o") for f in sources]
+    procs = [subprocess.Popen(
+        [_nvcc(), *FLAGS, "-c", *(["-Xptxas", "-v"] if verbose else []),
+         "-o", str(o), str(f)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for f, o in zip(sources, objs)]
+    logs = [(p, p.communicate()[0]) for p in procs]
+    res = subprocess.run([_nvcc(), *FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [log for p, log in logs if p.returncode != 0]
+    if failed or res.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)
+                           + f"\n{res.stdout}\n{res.stderr}")
+    if verbose:
+        print("".join(log for _, log in logs))
+    os.replace(tmp, out)
+    return out
+
+
 def library(verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built on first call.  `verbose` adds
     `-Xptxas -v` to a fresh build and prints what the compiler says
@@ -49,35 +85,7 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
-    sources = sorted(SRC_DIR.glob("*.cu"))
-    key = hashlib.sha256()
-    for f in sources:
-        key.update(f.name.encode())
-        key.update(f.read_bytes())
-    key.update(" ".join(FLAGS).encode())
-    out = BUILD_DIR / f"libt41x_kernels_{key.hexdigest()[:16]}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        # one nvcc a source, all at once, then one link
-        objs = [tmp.with_suffix(f".{f.stem}.o") for f in sources]
-        procs = [subprocess.Popen(
-            [_nvcc(), *FLAGS, "-c", *(["-Xptxas", "-v"] if verbose else []),
-             "-o", str(o), str(f)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for f, o in zip(sources, objs)]
-        logs = [(p, p.communicate()[0]) for p in procs]
-        res = subprocess.run([_nvcc(), *FLAGS, "-shared", "-o", str(tmp),
-                              *map(str, objs)], capture_output=True, text=True)
-        for o in objs:
-            o.unlink(missing_ok=True)
-        failed = [log for p, log in logs if p.returncode != 0]
-        if failed or res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)
-                               + f"\n{res.stdout}\n{res.stderr}")
-        if verbose:
-            print("".join(log for _, log in logs))
-        os.replace(tmp, out)
+    out = build(sorted(SRC_DIR.glob("*.cu")), "libt41x_kernels", verbose)
     _lib = ctypes.CDLL(str(out))
     build_seconds = time.perf_counter() - t0
     return _lib

@@ -13,7 +13,17 @@ CPU, with no card and no compiler.
   ~23 MB, bound by its bytes at ~6.9 us.
 * With no card, `RxChain(ChainSpec())` and `default_params` raise: the
   chain runs on the card unless the caller passes `device="cpu"`.
+* K3: its library yardstick (one stride-8 transposed convolution with
+  the two stages' composed taps) is the same function, and its bound is
+  2.89 us of bytes; `kernel_sanitize.py`'s race build puts a spin after
+  every barrier of every source; the scripts that run on the card
+  (`chip_smoke.py`, `kernel_ab.py`, `kernel_sanitize.py`,
+  `kernel_study.py`) load nothing of JAX.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -140,3 +150,83 @@ def test_chain_defaults_to_the_card_and_raises_without_one():
         default_params((2,))
     with pytest.raises((RuntimeError, AssertionError)):
         convert.params_from_numpy(default_params((2,), device="cpu"))
+
+
+def test_k3_library_call_is_the_two_stages():
+    """chip_smoke.py's yardstick for K3: one stride-8 transposed
+    convolution with h8 = h2 * (h1 zero-stuffed by 4), 220 taps, over the
+    block and 27 samples of 24 kHz history, equals the two polyphase
+    stages from zero histories (float64: the algebra, not the rounding)."""
+    import torch.nn.functional as F
+
+    from t41x_torch.dsp import fir
+    chain = RxChain(ChainSpec(use_kernels=False), device="cpu")
+    h8, hist = chip_smoke.k3_library_taps(chain.hi1, chain.hi2)
+    assert len(h8) == 47 * 4 + 1 + 32 - 1 == 220 and hist == 27
+    rng = np.random.default_rng(3)
+    ch, n = 3, C.AUDIO_BLOCK
+    x = torch.from_numpy(rng.standard_normal((ch, n)))
+    h1 = torch.from_numpy(chain.hi1.astype(np.float64))
+    h2 = torch.from_numpy(chain.hi2.astype(np.float64))
+    _, u = fir.fir_interpolate(torch.zeros(ch, 23, dtype=torch.float64), x,
+                               h1, C.DF2)
+    _, y = fir.fir_interpolate(torch.zeros(ch, 7, dtype=torch.float64), u,
+                               h2, C.DF1)
+    xh = torch.cat([torch.zeros(ch, hist, dtype=torch.float64), x], dim=-1)
+    lib = F.conv_transpose1d(xh[:, None], torch.from_numpy(h8)[None, None],
+                             stride=C.DF)[:, 0, C.DF * hist: C.DF * (hist + n)]
+    assert float((lib - y).abs().max()) < 1e-12 * float(y.abs().max())
+
+
+def test_k3_bound_arithmetic_matches_the_hand_count():
+    """K3 at the chain's shapes: 24 taps a phase at x2 and 8 at x4, 28.7k
+    FMAs and the volume a channel; 1.15 KB in (the audio, both histories,
+    the scale) and 8.3 KB out (y, both new histories): 2.89 us of bytes
+    at 1024 channels, against 0.9 us of fp32."""
+    ch, n = 1024, C.AUDIO_BLOCK
+    flops = chip_smoke.k3_flops(ch, n)
+    assert flops == ch * (2 * (512 * 24 + 2048 * 8) + 2048)
+    nbytes = 4 * ch * ((n + 23 + 7 + 1) + (8 * n + 23 + 7))
+    b = chip_smoke.bound(flops, nbytes)
+    assert b["bound_by"] == "bytes"
+    assert abs(b["bound_ms"] * 1e3 - 2.89) < 0.01
+    assert abs(flops / chip_smoke.PEAK_FP32 * 1e6 - 0.9) < 0.05
+
+
+def test_jittered_sources_spin_after_every_barrier():
+    """kernel_sanitize.py's race check builds every source with a spin
+    after each block and cluster barrier."""
+    import kernel_sanitize
+    from t41x_torch.kernels import _build
+    total = 0
+    for f in sorted(_build.SRC_DIR.glob("*.cu")):
+        src = f.read_text()
+        text, sites = kernel_sanitize.jittered(src)
+        assert sites == (src.count("__syncthreads();")
+                         + src.count("cluster.sync();")) > 0
+        assert text.count("t41x_jitter(__LINE__);") == sites
+        assert text.count("static __device__ __forceinline__ void "
+                          "t41x_jitter(unsigned site)") == 1
+        total += sites
+    assert total >= 30
+
+
+def test_chip_scripts_never_import_jax():
+    """chip_smoke.py, kernel_ab.py, kernel_sanitize.py and
+    kernel_study.py run on the card's machine, which has no JAX:
+    importing them, and building kernel_sanitize's rows on the CPU, loads
+    nothing of JAX or t41x."""
+    code = (
+        "import sys, torch\n"
+        "sys.modules['jax'] = None\n"
+        "import chip_smoke, kernel_ab, kernel_sanitize, kernel_study\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "rows = kernel_sanitize.kernel_rows(torch.device('cpu'), 3, g)\n"
+        "assert len(rows) == 17, len(rows)\n"
+        "bad = [m for m in sys.modules if m == 't41x' or "
+        "m.startswith(('t41x.', 'jax.', 'jaxlib'))]\n"
+        "assert not bad, bad\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr

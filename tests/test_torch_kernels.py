@@ -9,6 +9,7 @@ CUDA kernel, those two included, against its plain version on the card
 and skip without one.
 """
 
+import math
 import types
 
 import numpy as np
@@ -236,6 +237,76 @@ def test_interp_plain_matches_pallas(jx, ch):
         _close(ty, jy, 2e-5, 2e-6, "y")
         _close(t1, j1, 0.0, 0.0, "int1")
         _close(t2, j2, 2e-5, 2e-6, "int2")
+
+
+def test_interp_cpu_branch_takes_a_strided_real_row():
+    """On the CPU, K3's wrapper gives the same for the chain's `y.real`
+    (element stride 2) as for a contiguous copy of it."""
+    rng = np.random.default_rng(29)
+    tfi = TInterp(CHAIN.hi1, CHAIN.hi2)
+    ch = 5
+    vol = T(rng.uniform(0.5, 2.0, ch).astype(np.float32))
+    h = (T(rng.standard_normal((ch, 23)).astype(np.float32)),
+         T(rng.standard_normal((ch, 7)).astype(np.float32)))
+    for n in (1, 7, 256):
+        a = _interp_audio(rng, ch, n, "real")
+        assert a.stride(-1) == 2
+        got = tfi.apply(a, *h, vol)
+        ref = tfi.apply(a.contiguous(), *h, vol)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("form", ["contiguous", "real", "batched real",
+                                  "every third"])
+def test_interp_launch_passes_rows_as_they_lie(monkeypatch, form):
+    """K3's launch arguments, through an emulation of its C entry point
+    that reads the audio at the (pitch, step) it is given: a contiguous
+    row and `y.real` (leading dims too) go to the kernel as they lie, a
+    stride it does not take is copied first; the result is the plain
+    version's."""
+    import ctypes
+    rng = np.random.default_rng(30)
+    tfi = TInterp(CHAIN.hi1, CHAIN.hi2)
+    lead, n = ((2, 3) if form == "batched real" else (4,)), 19
+    z = T(_cx(rng, *lead, 3 * n, scale=0.4))
+    a = {"contiguous": z.real[..., :n].contiguous(),
+         "real": z.real[..., :n], "batched real": z.real[..., :n],
+         "every third": z.real[..., ::3]}[form]
+    h1 = T(rng.standard_normal(lead + (23,)).astype(np.float32))
+    h2 = T(rng.standard_normal(lead + (7,)).astype(np.float32))
+    vol = T(rng.uniform(0.5, 2.0, lead).astype(np.float32))
+    seen = {}
+
+    def view(ptr, count):
+        return np.ctypeslib.as_array((ctypes.c_float * count).from_address(
+            ptr))
+
+    def fake_launch(name, argtypes, audio, pitch, step, i1, i2, v, hp1,
+                    hp2, sub1, sub2, channels, nn, y, n1, n2, stream):
+        assert name == "t41x_interp" and len(argtypes) == 16
+        assert (sub1, sub2, nn) == (24, 8, n)
+        seen.update(pitch=pitch, step=step, channels=channels)
+        rows = np.stack([view(audio + 4 * c * pitch, (n - 1) * step + 1)
+                         [::step] for c in range(channels)])
+        ref = tfi.plain(T(rows.copy()), T(view(i1, channels * 23).reshape(
+            channels, 23).copy()), T(view(i2, channels * 7).reshape(
+                channels, 7).copy()), T(view(v, channels).copy()))
+        for ptr, r in zip((n1, n2, y), ref):
+            view(ptr, r.numel())[:] = r.numpy().ravel()
+
+    monkeypatch.setattr(_build, "launch", fake_launch)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    n0 = TInterp.launches
+    got = tfi._launch(a, h1, h2, vol)
+    ref = tfi.plain(a, h1, h2, vol)
+    assert TInterp.launches == n0 + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.equal(g, r)
+    want = {"contiguous": (n, 1), "real": (6 * n, 2),
+            "batched real": (6 * n, 2), "every third": (n, 1)}[form]
+    assert (seen["pitch"], seen["step"]) == want
+    assert seen["channels"] == math.prod(lead)
 
 
 @pytest.mark.parametrize("ch", [5, 130])
@@ -466,20 +537,54 @@ def test_agc_kernel_matches_plain_on_card(cuda, mode, ch):
     assert tk_agc.agc_block.launches == n0 + BLOCKS
 
 
+def _interp_audio(rng, ch, n, form, device="cpu"):
+    """A block of audio as the chain hands it to K3: the real part of a
+    complex64 block (`y.real`, element stride 2), or a contiguous row."""
+    z = T(_cx(rng, ch, n, scale=0.4)).to(device)
+    return z.real if form == "real" else z.real.contiguous()
+
+
 @pytest.mark.gpu
-def test_interp_kernel_matches_plain_on_card(cuda):
+@pytest.mark.parametrize("form", ["contiguous", "real"])
+@pytest.mark.parametrize("n", [1, 7, 256, 1000])
+@pytest.mark.parametrize("ch", [1, 7, 130, 1024])
+def test_interp_kernel_matches_plain_on_card(cuda, ch, n, form):
+    """K3 bit for bit (each output an fmaf chain from 0 over its taps,
+    oldest sample first, as cuDNN's convolutions sum with TF32 off): y
+    and both histories, from random histories, one launch a block, over
+    blocks shorter than the x2 history and longer than a segment."""
     rng = np.random.default_rng(33)
-    ch = 130
     tfi = TInterp(CHAIN.hi1, CHAIN.hi2)
-    vol = torch.linspace(0.5, 2.0, ch, device=cuda)
-    hk = hp = (torch.zeros(ch, tfi.sub1 - 1, device=cuda),
-               torch.zeros(ch, tfi.sub2 - 1, device=cuda))
-    for _ in range(BLOCKS):
-        a = T(rng.standard_normal((ch, 256)).astype(np.float32)).to(cuda)
+    vol = T(rng.uniform(0.5, 2.0, ch).astype(np.float32)).to(cuda)
+    hk = hp = (T(rng.standard_normal((ch, tfi.sub1 - 1)).astype(
+        np.float32)).to(cuda), T(rng.standard_normal(
+            (ch, tfi.sub2 - 1)).astype(np.float32)).to(cuda))
+    n0 = TInterp.launches
+    for b in range(BLOCKS):
+        a = _interp_audio(rng, ch, n, form, cuda)
         *hk, yk = tfi.apply(a, *hk, vol)
         *hp, yp = tfi.plain(a, *hp, vol)
-        _close(yk, yp.cpu(), 2e-5, 2e-6, "y")
-        _close(hk[1], hp[1].cpu(), 2e-5, 2e-6, "int2")
+        _equal(yk, yp, f"y block {b}")
+        _equal(hk[0], hp[0], f"int1 block {b}")
+        _equal(hk[1], hp[1], f"int2 block {b}")
+    assert TInterp.launches == n0 + BLOCKS
+
+
+@pytest.mark.gpu
+def test_interp_kernel_raises_on_other_taps(cuda):
+    """K3 is built for the chain's 48 x2 and 32 x4 taps: other designs
+    raise on the card (the plain version takes any)."""
+    a = torch.zeros(2, 256, device=cuda)
+    for h1, h2 in ((np.ones(40, np.float32), CHAIN.hi2),
+                   (CHAIN.hi1, np.ones(36, np.float32))):
+        tfi = TInterp(h1, h2)
+        z1 = torch.zeros(2, tfi.sub1 - 1, device=cuda)
+        z2 = torch.zeros(2, tfi.sub2 - 1, device=cuda)
+        n0 = TInterp.launches
+        with pytest.raises(ValueError, match="48 x2 taps and 32 x4 taps"):
+            tfi.apply(a, z1, z2, torch.ones(2, device=cuda))
+        assert TInterp.launches == n0
+        tfi.plain(a, z1, z2, torch.ones(2, device=cuda))
 
 
 @pytest.mark.gpu
