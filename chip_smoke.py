@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py        (from the repository root; needs a card)
     python3 chip_smoke.py --kernels ROOT
+    python3 chip_smoke.py --host
 
 The second form runs phases 1 and 2 alone on the `t41x_torch` package
 in ROOT (another checkout, e.g. a parent commit unpacked with `git
 archive`), profiles the rx and headless blocks as phase 4 does, and
 prints the kernels' JSON line and the card's line; `kernel_ab.py` runs
-it for several checkouts in turns.
+it for several checkouts in turns.  The third runs phases 1 and 5 and
+prints the runner's JSON line and the card's line.
 
 Phases, each of which raises on failure (so no result line follows a
 failure):
@@ -59,12 +61,29 @@ failure):
    headless spec, the radio's default spec, sam, Kim and LMS NR and the
    notch at 1024; then, for the same seven specs at 1024 channels, the
    device time per block of each CUDA kernel under `torch.profiler`, and
-   the number of device kernels a block.
+   the number of device kernels a block;
+5. drive the host layers at 1024 channels (`host_layers`): a `Radio` on
+   the card and its `StreamRunner`, which captures one CUDA graph a
+   chain spec and replays it, fed through the native `BlockRing`: (a)
+   16 blocks, then a band and mode change (a new graph) and 8 more, held
+   against the eager `RxChain.block` loop with the radio's parameters
+   (audio, last RF spectrum, S-meter, blocks processed; bit for bit
+   reported, the North-star bounds required), the kernel launches
+   counted; (b) the same stream in batches of 4; (c) a checkpoint saved
+   at block 8 and resumed by a fresh runner; (d) K1z's, K2's and (sam)
+   K6's kernels found inside 16 replays by `torch.profiler`, with no
+   wrapper launched; (e) ms a
+   block and the device's idle share over 64 blocks for the default
+   spec and sam: the graphed runner, the eager runner and the bare
+   `RxChain.block` loop; (f) a mono runner fed by `CaptureStreamer` at
+   real time for 3 s with no overrun; (g) `python -m t41x_torch.cli rx`
+   in a subprocess against `Radio.receive`, and `cli info`.
 
 It prints the kernels' JSON line (per kernel: its launches and launches
 per block on the main paths, max |err|, device ms a launch, the
 wrapper's, the plain version's and the library call's times, its flops,
-bytes and bound), the card's name and power limit as
+bytes and bound), phase 5's `{"runner": ...}` line, the card's name and
+power limit as
 `nvidia-smi` gives them, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a card, or outside the repository, it exits non-zero.
@@ -328,15 +347,412 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+HOST_BLOCKS = (16, 8)   # phase 5: blocks before and after the spec change
+HOST_BATCH = 4
+HOST_TIMED = 64         # blocks a timed run
+HOST_PROFILED = 16      # blocks a profiled run
+REALTIME_S = 3.0
+
+
+def host_layers(dev, card: str, n_ch: int, stim, counts) -> dict:
+    """Phase 5, the host layers at `n_ch` channels: the live path
+    `BlockRing` -> `StreamRunner` (one CUDA graph a chain spec) ->
+    display taps, S-meter and audio, held against the eager
+    `RxChain.block` loop; batches; a checkpoint round trip; the kernels
+    inside the replays (profiler); the runner's times; a real-time run
+    fed by `CaptureStreamer`; and the CLI.  `stim(n)` gives n host blocks
+    (n_ch, BLOCK) of complex64, `counts` the (reset, read) pair of the
+    kernel launch counters.  Raises on any failure; returns the figures.
+    On a CPU device (a rehearsal) the runner runs eagerly and the
+    profiler and timing parts are left out."""
+    import os
+    import tempfile
+
+    import torch
+
+    from t41x_torch import constants as C
+    from t41x_torch.chain import RxChain
+    from t41x_torch.config import RadioConfig
+    from t41x_torch.dsp.spectrum import smeter_dbm
+    from t41x_torch.io import runtime, wav
+    from t41x_torch.radio import Radio
+    from t41x_torch.runner import StreamRunner
+    from t41x_torch.utils import checkpoint, parity
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    reset_counts, read_counts = counts
+    n_first, n_after = HOST_BLOCKS
+    blocks = stim(n_first + n_after)
+    segments = (blocks[:n_first], blocks[n_first:])
+    result = {"card": card, "channels": n_ch}
+
+    def runner_for(radio, batch=1, graphs=True, capacity=n_first + 4):
+        ring = runtime.BlockRing(block_floats=2 * C.BLOCK_SIZE * n_ch,
+                                 capacity=capacity)
+        r = StreamRunner(radio, ring=ring, channels=(n_ch,),
+                         batch_blocks=batch, graphs=graphs)
+        r.keep_audio = True
+        return r
+
+    def feed(runner, seg):
+        for blk in seg:
+            if not runner.ring.push(blk.view(np.float32).reshape(-1)):
+                raise AssertionError("phase 5: the ring refused a block")
+        return runner.drain()
+
+    def stream(batch):
+        """The two segments through a graphed runner, 20M usb then 40M
+        lsb; returns the runner and each segment's (spec, params)."""
+        radio = Radio(device=dev)
+        runner = runner_for(radio, batch)
+        used = []
+        for i, seg in enumerate(segments):
+            if i == 1:
+                radio.set_band("40M")
+                radio.set_mode("lsb")
+            used.append((radio.chain.spec, radio.params((n_ch,))))
+            if feed(runner, seg) != len(seg):
+                raise AssertionError(f"phase 5: batch {batch} drained short")
+        return runner, used
+
+    def host(out):
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def eager(spec, params, seg):
+        chain = RxChain(spec, device=dev)
+        st = chain.init_state((n_ch,))
+        outs = []
+        for blk in seg:
+            st, out = chain.block(params, st, torch.from_numpy(blk).to(dev))
+            outs.append(host(out))
+        return st, outs
+
+    def agree(name, want, got, kind):
+        """Exact, or within the North-star bound of `kind` (raises
+        otherwise); returns the figures: audio SNR in dB, displayed
+        spectrum error in dB, S-meter difference in dB."""
+        exact = bool(np.array_equal(want, got))
+        if kind == "audio":
+            d = parity.snr_db(want, got)
+            ok = d >= parity.AUDIO_SNR_MIN_DB
+        elif kind == "spectrum_db":
+            d = parity.spectrum_err_db(10 ** (want / 10), 10 ** (got / 10))
+            ok = d <= parity.SPECTRUM_ERR_MAX_DB
+        else:  # S-meter, dB
+            d = abs(float(want) - float(got))
+            ok = d <= 0.01
+        if not ok:
+            raise AssertionError(f"phase 5 {name}: {kind} parity {d}")
+        # an exact match has an infinite SNR, which JSON cannot hold
+        return {"bit_for_bit": exact, "err": None if exact else d}
+
+    # (a) the graphed runner against the eager chain, with a spec change
+    reset_counts()
+    t0 = time.perf_counter()
+    run_a, used = stream(1)
+    if cuda:
+        torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches = read_counts()
+    for k in ("K1", "K2") if cuda else ():
+        if launches[k] == 0:
+            raise AssertionError(f"phase 5: kernel {k} was not launched")
+    ref = [eager(spec, pr, seg) for (spec, pr), seg in zip(used, segments)]
+    ref_audio = np.concatenate([o["audio_24k"] for _, outs in ref
+                                for o in outs])
+    last = ref[-1][1][-1]
+    if run_a.blocks_processed != n_first + n_after:
+        raise AssertionError(f"phase 5: {run_a.blocks_processed} blocks")
+    result["a"] = {
+        "blocks": run_a.blocks_processed, "wall_s": wall_a,
+        "graphs_captured": sorted(run_a._graph_of),
+        "launches": launches,
+        "audio": agree("audio", ref_audio, run_a.audio, "audio"),
+        "rf_spectrum": agree("rf", 10 * np.log10(last["rf_spectrum"]
+                                                 + 1e-12),
+                             run_a.last_rf_spectrum_db, "spectrum_db"),
+        "smeter_dbm": agree("S-meter", float(smeter_dbm(torch.from_numpy(
+            last["smeter_avg"][:1]))), run_a.last_smeter_dbm, "smeter"),
+        "state": all(bool(torch.equal(a, b)) for (_, a), (_, b) in zip(
+            checkpoint.flatten_with_path(run_a.state),
+            checkpoint.flatten_with_path(ref[-1][0]), strict=True)),
+    }
+    log(f"# phase 5 (a) runner vs eager: {result['a']}")
+
+    # (b) the same stream in batches of HOST_BATCH
+    run_b, _ = stream(HOST_BATCH)
+    result["b"] = {"audio": agree(
+        "batched audio", np.concatenate(run_a.audio_chunks, axis=-1),
+        np.concatenate(run_b.audio_chunks, axis=-1), "audio"),
+        "graphs_captured": sorted(run_b._graph_of),
+        "blocks": run_b.blocks_processed}
+    if run_b.blocks_processed != run_a.blocks_processed:
+        raise AssertionError("phase 5 (b): blocks differ")
+    log(f"# phase 5 (b) batches of {HOST_BATCH} vs (a): {result['b']}")
+    del run_b
+
+    # (c) a checkpoint at block n_first / 2, resumed by a fresh runner
+    half = n_first // 2
+    first = runner_for(Radio(device=dev))
+    feed(first, segments[0][:half])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        checkpoint.save_state(path, first.state,
+                              extra={"blocks": first.blocks_processed})
+        resumed = runner_for(Radio(device=dev))
+        state, meta = checkpoint.load_state(path, resumed.state)
+    resumed.state = state
+    resumed.blocks_processed = meta["blocks"]
+    feed(resumed, segments[0][half:])
+    result["c"] = {"audio": agree(
+        "resumed audio", np.concatenate(run_a.audio_chunks[half:n_first]),
+        resumed.audio, "audio"), "blocks": resumed.blocks_processed}
+    if resumed.blocks_processed != n_first:
+        raise AssertionError("phase 5 (c): blocks differ")
+    log(f"# phase 5 (c) checkpoint at block {half}: {result['c']}")
+    del first, resumed
+
+    def steps(runner):
+        """A body that pushes one block and steps, cycling the stream."""
+        it = iter(range(10 ** 9))
+
+        def body():
+            blk = blocks[next(it) % len(blocks)]
+            runner.ring.push(blk.view(np.float32).reshape(-1))
+            if runner.step() is None:
+                raise AssertionError("phase 5: step found no block")
+        return body
+
+    # (d) the hand-written kernels inside the replays
+    if cuda:
+        result["d"] = {}
+        radio = Radio(device=dev)
+        runner = runner_for(radio)
+        for mode, need in ((None, ("frontend_kernel", "agc_kernel")),
+                           ("sam", ("frontend_kernel", "agc_kernel",
+                                    "sam_kernel"))):
+            if mode:
+                radio.set_mode(mode)
+            body = steps(runner)
+            body()                       # the capture
+            torch.cuda.synchronize()
+            reset_counts()
+            per, _ = kernel_us(body, HOST_PROFILED)
+            # no wrapper ran: every kernel the profiler saw was replayed
+            python_launches = sum(read_counts().values())
+            seen = {n: sum(m for k, (_, m) in per.items() if n in k)
+                    for n in need}
+            if min(seen.values()) < 1 or python_launches:
+                raise AssertionError(
+                    f"phase 5 (d) {mode or 'default'}: kernels a replay "
+                    f"{seen}, wrapper launches {python_launches}; "
+                    f"{list(per)}")
+            result["d"][mode or "default"] = {
+                "kernels_a_replay": seen,
+                "wrapper_launches": python_launches}
+        log(f"# phase 5 (d) kernels in {HOST_PROFILED} replays: "
+            f"{result['d']}")
+        del runner
+
+    # (e) times: the graphed and the eager runner, and the bare chain loop
+    if cuda:
+        result["e"] = {}
+        for name, mode in (("default", None), ("sam", "sam")):
+            figures = {}
+            for kind in ("graphed", "eager"):
+                radio = Radio(device=dev)
+                if mode:
+                    radio.set_mode(mode)
+                runner = runner_for(radio, graphs=kind == "graphed",
+                                    capacity=8)
+                runner.keep_audio = False
+                runner.prime()
+                body = steps(runner)
+                for _ in range(3):
+                    body()
+                # the runner's own time: `step` (pop, stage, replay or
+                # the eager chain, read back; it ends in a sync), the
+                # source's push outside it as a producer thread's is
+                t_push = t_step = 0.0
+                for b in range(HOST_TIMED):
+                    blk = blocks[b % len(blocks)].view(np.float32)
+                    t0 = time.perf_counter()
+                    runner.ring.push(blk.reshape(-1))
+                    t1 = time.perf_counter()
+                    runner.step()
+                    t_push += t1 - t0
+                    t_step += time.perf_counter() - t1
+                ms = t_step / HOST_TIMED * 1e3
+                per, wall = kernel_us(body, HOST_PROFILED)
+                figures[kind] = _busy(per, ms, wall / HOST_PROFILED)
+                figures[kind]["push_ms_a_block"] = t_push / HOST_TIMED * 1e3
+                figures[kind]["load_percent"] = runner.load.percent
+                if kind == "graphed":
+                    figures["graphed_step_split_ms"] = _step_split(
+                        runner, blocks[0])
+                del runner
+            spec = Radio(device=dev)
+            if mode:
+                spec.set_mode(mode)
+            chain = RxChain(spec.chain.spec, device=dev)
+            pr = spec.params((n_ch,))
+            blk = torch.from_numpy(blocks[0]).to(dev)
+            st = [chain.init_state((n_ch,))]
+
+            def bare():
+                st[0] = chain.block(pr, st[0], blk)[0]
+            for _ in range(3):
+                bare()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_TIMED):
+                bare()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / HOST_TIMED * 1e3
+            per, wall = kernel_us(bare, HOST_PROFILED)
+            figures["bare_chain_loop"] = _busy(per, ms, wall / HOST_PROFILED)
+            result["e"][name] = figures
+            log(f"# phase 5 (e) {name}, {n_ch} channels, ms a block and "
+                f"device idle share ({card}): {figures}")
+
+    # (f) real time: a mono capture paced at rate_factor 1
+    n_rt = int(REALTIME_S * C.SAMPLE_RATE) // C.BLOCK_SIZE
+    mono = np.concatenate([b[0] for b in blocks] * (
+        -(-n_rt // len(blocks))))[: n_rt * C.BLOCK_SIZE]
+    radio = Radio(device=dev)
+    runner = StreamRunner(radio)
+    runner.prime()
+    streamer = runtime.CaptureStreamer(runner.ring, mono, rate_factor=1.0)
+    t0 = time.perf_counter()
+    try:
+        while streamer.running or runner.ring.available():
+            if runner.step() is None:
+                time.sleep(0.0005)
+            if time.perf_counter() - t0 > 4 * REALTIME_S + 10:
+                raise AssertionError("phase 5 (f): the stream did not end")
+    finally:
+        streamer.stop()
+    result["f"] = {"blocks": runner.blocks_processed, "expected": n_rt,
+                   "overruns": runner.ring.overruns,
+                   "load_percent": runner.load.percent,
+                   "ring": ("native" if runtime.native_available()
+                            else "python"),
+                   "wall_s": time.perf_counter() - t0}
+    log(f"# phase 5 (f) real time, {REALTIME_S} s at rate_factor 1: "
+        f"{result['f']}")
+    if runner.ring.overruns or runner.blocks_processed != n_rt:
+        raise AssertionError(f"phase 5 (f): {result['f']}")
+    del runner, streamer
+
+    # (g) the CLI in a subprocess, against Radio.receive
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        cap, out = os.path.join(tmp, "cap.wav"), os.path.join(tmp, "out.wav")
+        want_wav = os.path.join(tmp, "want.wav")
+        iq = mono[: 12 * C.BLOCK_SIZE]
+        wav.write_iq_wav(cap, iq, C.SAMPLE_RATE)
+        iq, _ = wav.read_iq_wav(cap)
+        cmd = [sys.executable, "-m", "t41x_torch.cli", "rx", "--in", cap,
+               "--out", out, "--device", str(dev)]
+        res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"phase 5 (g): cli rx failed: {res.stderr}")
+        audio = Radio(device=dev).receive(iq)["audio_24k"]
+        wav.write_wav(want_wav, audio / (1.05 * float(abs(audio).max()
+                                                      or 1.0)), 24000)
+        got, want = wav.read_wav(out)[0], wav.read_wav(want_wav)[0]
+        info = subprocess.run([sys.executable, "-m", "t41x_torch.cli",
+                               "info"], cwd=root, capture_output=True,
+                              text=True, timeout=600)
+        if info.returncode != 0 or json.loads(info.stdout) != \
+                RadioConfig().to_dict():
+            raise AssertionError(f"phase 5 (g): cli info: {info.stderr}")
+    result["g"] = {"rx_audio": agree("cli rx", want, got, "audio"),
+                   "rx_stdout": res.stdout.strip().splitlines()[0],
+                   "info": "equal to RadioConfig().to_dict()"}
+    log(f"# phase 5 (g) cli: {result['g']}")
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
+def _step_split(runner, blk, reps: int = 16) -> dict:
+    """Where a graphed `step` spends its time, its parts one by one on
+    the runner's own objects (host clock, ms, median of `reps`): the
+    ring pop, the copy into the pinned buffer, the host-to-device copy,
+    `Radio.params` and their copy into the graph, the replay, the
+    read-back of the display taps and the RF tap's dB on the host."""
+    import torch
+
+    g = runner._graph_of["block"]
+    flat = blk.view(np.float32).reshape(-1)
+    sync = torch.cuda.synchronize
+
+    def popped():
+        runner.ring.push(flat)
+        t0 = time.perf_counter()
+        runner.ring.pop_iq()
+        return time.perf_counter() - t0
+
+    def params():
+        p = runner.radio.params(runner.channels)
+        for static, v in zip(g.params, p):
+            static.copy_(v)
+        sync()
+
+    parts = {"pop": popped,
+             "stage": lambda: g.pinned.copy_(torch.from_numpy(blk)),
+             "h2d": lambda: (g.iq.copy_(g.pinned, non_blocking=True),
+                             sync()),
+             "params": params,
+             "replay": lambda: (g.graph.replay(), sync()),
+             "read_back": lambda: [g.out[k].cpu() for k in (
+                 "rf_spectrum", "audio_spectrum", "smeter_avg")
+                 if k in g.out],
+             # t41x's runner keeps the whole RF tap in dB on the host
+             "rf_db": lambda: 10 * np.log10(rf + 1e-12)}
+    rf = g.out["rf_spectrum"].cpu().numpy()
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            dt = fn()
+            times.append(dt if name == "pop" else time.perf_counter() - t0)
+        out[name] = float(np.median(times)) * 1e3
+    return out
+
+
+def _busy(per: dict, ms: float, wall_prof: float) -> dict:
+    """A timed run's figures: ms a block on the host clock, and from the
+    profiled run (a call: a runner's push and step, or the bare loop's
+    block) the device µs a block in kernels and in copies, and the
+    device's idle share of the unprofiled block."""
+    kern = sum(us * m for k, (us, m) in per.items()
+               if not k.startswith(("Memcpy", "Memset")))
+    copies = sum(us * m for k, (us, m) in per.items()
+                 if k.startswith(("Memcpy", "Memset")))
+    return {"ms_a_block": ms, "device_kernel_us_a_block": kern,
+            "device_copy_us_a_block": copies,
+            "device_kernels_a_block": sum(
+                m for k, (_, m) in per.items()
+                if not k.startswith(("Memcpy", "Memset"))),
+            "device_idle_share": 1.0 - (kern + copies) / (ms * 1e3),
+            "ms_a_call_under_profiler": wall_prof * 1e3}
+
+
 def main(argv: list[str]) -> int:
     import torch
     import torch.nn.functional as F
 
     root = None  # --kernels ROOT: phases 1 and 2 on ROOT's t41x_torch
+    host_only = argv == ["--host"]  # phases 1 and 5
     if len(argv) == 2 and argv[0] == "--kernels":
         root = Path(argv[1]).resolve()
         sys.path.insert(0, str(root))
-    elif argv:
+    elif argv and not host_only:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -377,6 +793,22 @@ def main(argv: list[str]) -> int:
     _build.library()
     log(f"# build: {_build.build_seconds:.1f} s (nvcc sm_90a, "
         f"{len(list(_build.SRC_DIR.glob('*.cu')))} sources)")
+
+    counters = {"K1": (kfe.FusedFrontEnd, "launches"),
+                "K2": (kagc.agc_block, "launches"),
+                "K3": (kint.FusedInterp, "launches"),
+                "K4": (kos.os_filter_matmul_kernel, "launches"),
+                "K5": (kagc.agc_scan, "launches"),
+                "K6": (ksam.sam_block, "launches"),
+                "K7": (kxanr.xanr_block, "launches"),
+                "K8": (knr.kim_gains, "launches")}
+
+    def reset_counts():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read_counts():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
 
     gen = torch.Generator(device=dev).manual_seed(7)
 
@@ -423,6 +855,16 @@ def main(argv: list[str]) -> int:
                           rf_gain_db=lin(-3.0, 6.0),
                           iq_amp=lin(0.97, 1.03),
                           iq_phase=lin(-0.02, 0.02))
+
+    def stim(n_blocks):
+        """Phase 3's stimulus as n_blocks host arrays (N_CH, BLOCK)."""
+        return list(rf_blocks(N_CH, n_blocks).cpu().numpy())
+
+    if host_only:
+        print(json.dumps({"runner": host_layers(
+            dev, card, N_CH, stim, (reset_counts, read_counts))}))
+        print(card)
+        return 0
 
     def time_ms(fn, reps=REPS):
         for _ in range(3):
@@ -825,22 +1267,6 @@ def main(argv: list[str]) -> int:
         return 0
 
     # ---- 3. the main path, through the kernels ----------------------------
-    counters = {"K1": (kfe.FusedFrontEnd, "launches"),
-                "K2": (kagc.agc_block, "launches"),
-                "K3": (kint.FusedInterp, "launches"),
-                "K4": (kos.os_filter_matmul_kernel, "launches"),
-                "K5": (kagc.agc_scan, "launches"),
-                "K6": (ksam.sam_block, "launches"),
-                "K7": (kxanr.xanr_block, "launches"),
-                "K8": (knr.kim_gains, "launches")}
-
-    def reset_counts():
-        for obj, attr in counters.values():
-            setattr(obj, attr, 0)
-
-    def read_counts():
-        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
-
     def feed(counts, fed, n_blocks):
         """Add a path's launches, and the blocks it ran, to the rows of
         the variants it ran."""
@@ -1066,6 +1492,9 @@ def main(argv: list[str]) -> int:
     for name in TIMED:
         profile(name, blk, pr)
 
+    # ---- 5. the host layers -------------------------------------------------
+    runner = host_layers(dev, card, N_CH, stim, (reset_counts, read_counts))
+
     for r in rows:
         r["launches_per_block"] = (r["launches"] / r["blocks"]
                                    if r["blocks"] else 0.0)
@@ -1073,6 +1502,7 @@ def main(argv: list[str]) -> int:
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']}: launched on no main path")
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"runner": runner}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,17 @@ JAX: the design-time code (`constants`, `utils.windows`,
 / `dsp.chunk_ops`, the EQ, CW and zoom designs) is a copy pinned equal
 to `t41x`'s.
 
+    t41x_torch.radio.Radio               — the user-facing radio
+    t41x_torch.runner.StreamRunner       — the live loop (one CUDA graph
+                                           a chain spec on the card)
+    python -m t41x_torch.cli             — the command line
     t41x_torch.chain.RxChain, ChainSpec — the receive chain
     t41x_torch.kernels.*                 — the CUDA kernels and their
                                            plain PyTorch versions
+
+The JAX-free host modules of `t41x` (config, wav, signals, the native
+runtime's bindings, ...) are copies pinned to their originals
+(`tests/test_torch_host_copies.py`).
 """
 
 import torch
