@@ -4,13 +4,16 @@
     python3 chip_smoke.py        (from the repository root; needs a card)
     python3 chip_smoke.py --kernels ROOT
     python3 chip_smoke.py --host
+    python3 chip_smoke.py --txdec
 
 The second form runs phases 1 and 2 alone on the `t41x_torch` package
 in ROOT (another checkout, e.g. a parent commit unpacked with `git
 archive`), profiles the rx and headless blocks as phase 4 does, and
 prints the kernels' JSON line and the card's line; `kernel_ab.py` runs
 it for several checkouts in turns.  The third runs phases 1 and 5 and
-prints the runner's JSON line and the card's line.
+prints the runner's JSON line and the card's line.  The fourth runs
+phases 1 and 6 and prints the kernels' line (C1's row), phase 6's line,
+the card's line and the last line.
 
 Phases, each of which raises on failure (so no result line follows a
 failure):
@@ -77,12 +80,36 @@ failure):
    spec and sam: the graphed runner, the eager runner and the bare
    `RxChain.block` loop; (f) a mono runner fed by `CaptureStreamer` at
    real time for 3 s with no overrun; (g) `python -m t41x_torch.cli rx`
-   in a subprocess against `Radio.receive`, and `cli info`.
+   in a subprocess against `Radio.receive`, and `cli info`;
+6. drive the transmit chains and the decoders (`tx_decoders`): (a) C1,
+   the mic compressor's kernel (no TPU counterpart: t41x runs a
+   lax.scan), against its plain loop at 1024 channels x 3 blocks from
+   random carried envelopes that reach both the attack and the release
+   branch, bit for bit, with its row in the kernels' line (device time
+   by the profiler, L2 flushed; bound, the plain loop's time), and its
+   clock64 split, whose envelope phase is the measured serial floor of
+   a block's 2048 dependent steps; (b) the SSB exciter
+   at 1024 channels (usb with EQ and compressor, lsb with compressor)
+   with C1 against the plain loop (I/Q SNR >= 55 dB) and ms a block,
+   `Radio.transmit_ssb` (the default config, which compresses: C1's
+   main path, its launches counted) and `transmit_cw` at one channel in
+   ms a block against the 10.667 ms budget, and a TX -> RX loopback
+   (audio SNR > 10 dB); (c) FT8: a slot of 15 `transmit_ft8` signals
+   and a two-signal slot through `Radio.decode_ft8` on the card, every
+   message decoded and the decodes equal to the decoder's on the CPU on
+   the same audio, the decode's ms split (waterfall, sync and pool, LLR
+   and BP, host tail; median of 5) and BP run twice bit for bit; (d) a
+   live FT8 slot through the graphed runner fed at real time, synced on
+   the slot boundary, decoded inside the slot's 1.5 s margin, median
+   load under 100%, no overrun;
+   (e) `Radio.decode_psk31` on the card equal to the CPU's; (f) `python
+   -m t41x_torch.cli ft8` and `psk31` in a subprocess against `Radio`.
 
 It prints the kernels' JSON line (per kernel: its launches and launches
 per block on the main paths, max |err|, device ms a launch, the
 wrapper's, the plain version's and the library call's times, its flops,
-bytes and bound), phase 5's `{"runner": ...}` line, the card's name and
+bytes and bound), phase 5's `{"runner": ...}` and phase 6's `{"txdec":
+...}` lines, the card's name and
 power limit as
 `nvidia-smi` gives them, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -95,6 +122,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -118,6 +146,10 @@ K4 = ("t41x_torch/csrc/os_filter.cu", "t41x/kernels/os_filter_pallas.py:32")
 K6 = ("t41x_torch/csrc/sam.cu", "t41x/kernels/sam_pallas.py:32")
 K7 = ("t41x_torch/csrc/xanr.cu", "t41x/kernels/xanr_pallas.py:35")
 K8 = ("t41x_torch/csrc/nr_gain.cu", "t41x/kernels/nr_gain_pallas.py:35")
+# C1 replaces no TPU kernel: t41x runs the compressor's envelope as a
+# lax.scan (the line given)
+C1 = ("t41x_torch/csrc/compressor.cu", "t41x/chain/compressor.py:64")
+C1_MAX_ULP = 0      # C1 against its plain loop on the card: bit for bit
 
 # the main paths: ChainSpec keywords, parity measure, and the kernels that
 # must launch
@@ -180,7 +212,8 @@ PEAK_HBM = 3.35e12  # bytes/s
 KERNEL_NAMES = {"K1": "frontend_kernel", "K2": "agc_kernel",
                 "K3": "interp_kernel", "K4": "os_filter_kernel",
                 "K5": "agc_scan_kernel", "K6": "sam_kernel",
-                "K7": "xanr_kernel", "K8": "kim_gain_kernel"}
+                "K7": "xanr_kernel", "K8": "kim_gain_kernel",
+                "C1": "compress_kernel"}
 
 
 def k1_flops(n_ch: int, zoom=None, n: int = 2048, t1: int = 28,
@@ -239,6 +272,7 @@ OPS_PER_ELEMENT = {
     "K6": 60,      # per sample: mix, atan series (15 FMAs), loop filter
     "K7": 4 * 64 + 16,  # per sample: 64-tap prediction and update
     "K8": 40,      # per bin and hop: minimum statistics, Wiener rule
+    "C1": 60,      # per sample: log10f, the envelope step, powf
 }
 
 
@@ -259,6 +293,15 @@ def log(msg: str) -> None:
 
 L2_FLUSH_BYTES = 256 << 20  # five times the card's 50 MB L2
 PROFILER_TRIES = 5
+# what each profiler session runs before its timed calls: the profiler
+# drops a session's first device records, always the first ones, up to
+# 142 in one session of the whole script (`kernel_study.py
+# profiler-loss`), so PROFILER_SPINS spin kernels (torch.cuda._sleep's)
+# and a wait of PROFILER_WAIT_S take the loss
+PROFILER_SPINS = 256
+PROFILER_WAIT_S = 0.01
+SPIN_KERNEL = "spin_kernel"
+_spins_dropped = []  # a session each: spin records the profiler dropped
 _flush = {}  # the flush buffer, and the profiler's names of its kernels
 
 
@@ -277,18 +320,28 @@ def kernel_us(body, n: int, check=None):
     """Each CUDA kernel `body` launches, by name: (device µs a launch,
     launches a call), over `n` calls under torch.profiler; and the
     seconds the calls took on the host clock, up to the card's end of
-    them.  The profiler can miss a session's first kernels, or deliver a
-    session's kernels into the next one: so a kernel's time is its mean
-    over the launches the session holds, its launches a call the whole
-    number m nearest its count over `n`, and a session in which a count
-    lies more than a tenth of max(m, 1) n from m n, or that fails
-    `check`, is run again.  Counts below n/10 are strays of an earlier
-    session."""
+    them.  The profiler can drop a session's first device records, or
+    deliver a session's kernels into the next one: so each session
+    starts with PROFILER_SPINS spin kernels and a wait, which take the
+    first loss, the spins left out (`_spins_dropped` keeps how many of
+    them were dropped), a
+    kernel's time is its mean over the launches the session holds, its
+    launches a call the whole number m nearest its count over `n`, and
+    a session in which a count lies more than a tenth of max(m, 1) n
+    from m n, or that fails `check`, is logged and run again.  Counts
+    below n/10 are strays of an earlier session."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(PROFILER_TRIES):
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            log(f"# kernel_us: session {attempt} of {n} calls not whole, "
+                f"kernel counts {counts}; run again")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILER_SPINS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_WAIT_S)
             t0 = time.perf_counter()
             for _ in range(n):
                 body()
@@ -296,6 +349,9 @@ def kernel_us(body, n: int, check=None):
             wall = time.perf_counter() - t0
         evs = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
+        _spins_dropped.append(PROFILER_SPINS - sum(
+            ev.count for ev in evs if SPIN_KERNEL in ev.key))
+        evs = [ev for ev in evs if SPIN_KERNEL not in ev.key]
         counts = {ev.key: ev.count for ev in evs}
         per = {ev.key: (ev.device_time_total / ev.count,
                         round(ev.count / n))
@@ -345,6 +401,49 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_max_mhz() -> float:
+    """The card's top SM clock, MHz, as `nvidia-smi` gives it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def log_phases(name, fn, names, card: str, loop=None, steps=1,
+               n_ch: int = N_CH) -> dict:
+    """Where a kernel's time goes: clock64 stamps per phase, mean over
+    the blocks of 10 launches, cold (L2 flushed before each) and warm;
+    the `loop` phase, where there is one, also in cycles a step.  `fn`
+    launches the phases variant and returns its stamps.  Returns each
+    temperature's split (`phase_split`)."""
+    import torch
+
+    # agc.py re-exports phase_split, as in the trees before it moved
+    from t41x_torch.kernels import agc as kagc
+    out = {}
+    for temp in ("cold", "warm"):
+        fn()
+        stamps = []
+        for _ in range(10):
+            if temp == "cold":
+                l2_flush()
+            stamps.append(fn())
+        split = kagc.phase_split(torch.cat(stamps), names)
+        ghz = split["sm_ghz"]
+        if loop:
+            split["cycles_a_step"] = split[loop] * 1e3 * ghz / steps
+        step = (f"; {loop} {split['cycles_a_step']:.1f} cycles a step"
+                if loop else "")
+        log(f"# {name} phases {temp}, us a block: " + ", ".join(
+            f"{k} {split[k]:.3f}" for k in (*names, "block"))
+            + f"{step} at {ghz:.3f} GHz ({n_ch} channels, {card})")
+        out[temp] = split
+    return out
 
 
 HOST_BLOCKS = (16, 8)   # phase 5: blocks before and after the spec change
@@ -743,16 +842,470 @@ def _busy(per: dict, ms: float, wall_prof: float) -> dict:
             "ms_a_call_under_profiler": wall_prof * 1e3}
 
 
+TX_CHANNELS = 1024       # phase 6 (b): the batched exciter
+TX_BLOCKS = 8
+RADIO_TX_BLOCKS = 32     # phase 6 (b): Radio.transmit_ssb, one channel
+BLOCK_BUDGET_MS = 1e3 * 2048 / 192_000   # 10.667 ms, a block's real time
+FT8_REPS = 5
+FT8_CROWD = 15
+FT8_MARGIN_S = 1.5       # slots.py: a 15 s slot of which 13.5 s is taken
+LIVE_SLOT_END_S = 15.2   # phase 6 (d): the slot's audio ends 15.2 s in
+LIVE_WAIT_S = 25.0
+LIVE_SYNC_BY_S = 0.25    # the boundary at 0.2 s, and a block's 10.7 ms
+
+
+def _ft8_crowd(radio, n_sig: int, seed: int):
+    """n_sig `Radio.transmit_ft8` signals in one 15.4 s capture: base
+    frequencies over 400-2700 Hz, levels over ~16 dB, starts over 0-2 s
+    after the 0.5 s lead-in, in light noise; and their messages."""
+    from t41x_torch import constants as C
+
+    rng = np.random.default_rng(seed)
+    calls = ["K1ABC", "W9XYZ", "N2DEF", "K5GHI", "W0JKL", "N8MNO",
+             "K3PQR", "W4STU", "N6VWX", "K7YZA", "W1BCD", "N3EFG",
+             "K9HIJ", "W5KLM", "N7NOP"][:n_sig]
+    msgs = [f"CQ {c} FN{(i * 7) % 90:02d}" for i, c in enumerate(calls)]
+    freqs = np.linspace(400.0, 2700.0, n_sig)
+    rng.shuffle(freqs)
+    amps = 10 ** (rng.uniform(0.0, 0.8, n_sig)) / 10 ** 0.8
+    n = int(15.4 * C.SAMPLE_RATE) // C.BLOCK_SIZE * C.BLOCK_SIZE
+    iq = 0.002 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    for m, f, a in zip(msgs, freqs, amps):
+        sig = radio.transmit_ft8(m, base_freq=float(f)) * a
+        d = int(rng.uniform(0.0, 2.0) * C.SAMPLE_RATE)
+        e = min(d + len(sig), n)
+        iq[d:e] += sig[: e - d]
+    return iq.astype(np.complex64), msgs
+
+
+def _live_ft8_slot(dev, iq, msg: str) -> dict:
+    """One live FT8 slot (phase 6 (d)): a radio in ft8 mode, its runner
+    (graphed on the card) fed by `CaptureStreamer` at real time, the
+    slot clock the wall clock with its next 15 s boundary 0.2 s into the
+    stream.  Returns what a decode gave and when, the load, the ring's
+    overruns and when the slot manager synced."""
+    import torch
+
+    from t41x_torch import constants as C
+    from t41x_torch.decode.ft8 import decode as ft8
+    from t41x_torch.io import runtime
+    from t41x_torch.radio import Radio
+    from t41x_torch.runner import StreamRunner
+
+    live = Radio(device=dev)
+    live.set_mode("ft8")
+    t_start = None
+
+    def wall_clock():
+        if t_start is None:
+            return 0.0
+        return (time.monotonic() - t_start) + (15.0 - 0.2)
+
+    runner = StreamRunner(live, ring=runtime.BlockRing(capacity=256),
+                          slot_clock=wall_clock)
+    runner.prime()
+    ft8.decode_audio(np.zeros(int(13.5 * C.AUDIO_RATE), np.float32),
+                     device=dev)   # the decoder's first-use set-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    slots = runner._ft8_slots
+    t_start = time.monotonic()
+    streamer = runtime.CaptureStreamer(runner.ring, iq, rate_factor=1.0)
+    decoded, t_decode, synced, loads, steps = None, None, None, [], []
+    try:
+        while time.monotonic() < t_start + LIVE_WAIT_S:
+            t0 = time.monotonic()
+            r = runner.step()
+            if r is None:
+                if not streamer.running and runner.ring.available() == 0:
+                    break
+                time.sleep(0.001)
+                continue
+            steps.append(time.monotonic() - t0)
+            loads.append(r["load_percent"])
+            if synced is None and slots.synced:
+                synced = time.monotonic() - t_start
+            if r.get("ft8"):
+                decoded, t_decode = r["ft8"], time.monotonic() - t_start
+                break
+    finally:
+        streamer.stop()
+    return {"decoded": [d.text for d in decoded or []],
+            "t_decode_s": t_decode,
+            "deadline_s": LIVE_SLOT_END_S + FT8_MARGIN_S,
+            "median_load_percent": float(np.median(loads)),
+            "overruns": runner.ring.overruns,
+            "blocks": runner.blocks_processed, "graphed": runner.graphs,
+            "synced_s": synced, "longest_step_ms": 1e3 * max(steps)}
+
+
+def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
+    """Phase 6, the transmit chains and the decoders on the card: (a) C1
+    against its plain loop; (b) the SSB exciter at 1024 channels, the
+    radio's `transmit_ssb` / `transmit_cw` at one channel against the
+    block budget, and a TX -> RX loopback; (c) FT8 slots decoded by
+    `Radio.decode_ft8` on the card against the port on the CPU, and
+    the decode's time split; (d) a live FT8 slot through the graphed
+    runner at real time; (e) PSK31; (f) the CLI's ft8 and psk31.
+    Raises on any failure; returns the figures."""
+    import os
+    import tempfile
+
+    import torch
+
+    from t41x_torch import constants as C
+    from t41x_torch.chain import ChainSpec, RxChain
+    from t41x_torch.chain import compressor as comp_mod, tx
+    from t41x_torch.decode import psk31
+    from t41x_torch.decode.ft8 import decode as ft8, ldpc, sync
+    from t41x_torch.decode.ft8 import waterfall
+    from t41x_torch.io import signals, wav
+    from t41x_torch.kernels import compressor as kcomp
+    from t41x_torch.radio import Radio
+    from t41x_torch.utils import parity
+
+    t_phase = time.perf_counter()
+    reset_counts, read_counts = counts
+    result = {"card": card}
+
+    # (a) C1 against its plain loop: 1024 channels x 3 blocks from random
+    # carried envelopes, the levels spread over the channels from -60 to
+    # +10 dBFS, so that both the attack and the release branch run
+    p = comp_mod.compressor_params(rate=C.SAMPLE_RATE)
+    g = torch.Generator(device=dev).manual_seed(13)
+    n_ch = TX_CHANNELS
+    env0 = -80.0 + 90.0 * torch.rand(n_ch, generator=g, device=dev)
+    level = torch.logspace(-3, 0.5, n_ch, device=dev)[:, None]
+    st_k = st_p = comp_mod.CompressorState(env0)
+    up = torch.zeros((), dtype=torch.int64, device=dev)
+    env = env0.clone()
+    ulp = {"y": 0, "env_db": 0}
+
+    def ulps(a, b):
+        ia = a.view(torch.int32).to(torch.int64)
+        ib = b.view(torch.int32).to(torch.int64)
+        ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+        ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+        return int((ia - ib).abs().max())
+
+    for _ in range(3):
+        x = torch.randn(n_ch, C.BLOCK_SIZE, generator=g, device=dev) * level
+        st_k, y_k = comp_mod.compress(p, st_k, x)
+        st_p, y_p = comp_mod.compress_plain(p, st_p, x)
+        ulp["y"] = max(ulp["y"], ulps(y_k, y_p))
+        ulp["env_db"] = max(ulp["env_db"], ulps(st_k.env_db, st_p.env_db))
+        ldb = 20.0 * torch.log10(torch.clamp_min(x.abs(), 1e-9))
+        for n in range(C.BLOCK_SIZE):   # which branch each sample takes
+            u = ldb[:, n] > env
+            up += u.sum()
+            c = torch.where(u, p.attack_coeff, p.release_coeff)
+            env = c * env + (1.0 - c) * ldb[:, n]
+    n_samples = 3 * n_ch * C.BLOCK_SIZE
+    up = int(up)
+    if not 0 < up < n_samples:
+        raise AssertionError(f"phase 6 (a): attack on {up} of {n_samples}")
+    err = float((y_k - y_p).abs().max())
+    if ulp["y"] > C1_MAX_ULP or ulp["env_db"] > C1_MAX_ULP:
+        raise AssertionError(f"phase 6 (a): C1 vs its plain loop {ulp} ulp")
+    row("C1 compressor", C1, lambda: comp_mod.compress(p, st_k, x),
+        lambda: comp_mod.compress_plain(p, st_k, x), err, (0.0, 0.0),
+        OPS_PER_ELEMENT["C1"] * x.numel(), (x, st_k),
+        comp_mod.compress(p, st_k, x), plain_reps=REPS_PLAIN)
+    c1 = rows[-1]
+    c1["tpu_kernel"] = None   # replaces t41x's lax.scan, no TPU kernel
+    # the serial floor, measured: the envelope phase of a block (its 2048
+    # dependent steps, one thread a channel), from C1's clock64 stamps
+    split = log_phases("C1", lambda: kcomp.compress_phases(p, st_k, x)[2],
+                       kcomp.C1_PHASES, card, "envelope", C.BLOCK_SIZE,
+                       n_ch)
+    result["a"] = {"attack_share": up / n_samples, "max_ulp": ulp,
+                   "max_abs_err": err,
+                   "envelope_us_a_block": {t: split[t]["envelope"]
+                                           for t in split},
+                   "envelope_cycles_a_step": {t: split[t]["cycles_a_step"]
+                                              for t in split},
+                   "block_us": {t: split[t]["block"] for t in split},
+                   "sm_ghz": split["warm"]["sm_ghz"],
+                   "device_us": c1["ms"] * 1e3,
+                   "bound_us": c1["bound_ms"] * 1e3,
+                   "plain_ms": c1["plain_ms"]}
+    log(f"# phase 6 (a) C1: {result['a']} ({card})")
+
+    # (b) the SSB exciter at 1024 channels, kernel path against the plain
+    # loop on the card; ms a block
+    voices = np.stack([signals.voice_proxy(
+        TX_BLOCKS * C.BLOCK_SIZE, fs_audio=C.SAMPLE_RATE, seed=s)
+        for s in range(16)]).astype(np.float32)
+    mic = torch.from_numpy(np.tile(voices, (TX_CHANNELS // 16, 1))).to(dev)
+    mic = mic * torch.linspace(0.1, 2.0, TX_CHANNELS, device=dev)[:, None]
+    result["b"] = {}
+    for name, kw in (("usb_eq_comp", dict(sideband="usb", eq_on=True,
+                                          compressor_on=True)),
+                     ("lsb_comp", dict(sideband="lsb",
+                                       compressor_on=True))):
+        ex = tx.SSBExciter(tx.TxSpec(**kw), device=dev)
+        # the same exciter with the compressor's plain loop
+        ex_p = tx.SSBExciter(tx.TxSpec(**kw, use_kernels=False), device=dev)
+        pr = tx.default_tx_params((TX_CHANNELS,), device=dev)._replace(
+            iq_phase=torch.linspace(-0.02, 0.02, TX_CHANNELS, device=dev))
+
+        def stream(ex, pr=pr):
+            st, out = ex.init_state((TX_CHANNELS,)), []
+            for b in range(TX_BLOCKS):
+                st, iq = ex.block(pr, st, mic[:, b * C.BLOCK_SIZE:
+                                              (b + 1) * C.BLOCK_SIZE])
+                out.append(iq)
+            return st, torch.cat(out, -1)
+
+        reset_counts()
+        _, iq_k = stream(ex)
+        torch.cuda.synchronize()
+        launches = read_counts()["C1"]
+        _, iq_p = stream(ex_p)
+        snr = parity.snr_db(iq_p.cpu().numpy(), iq_k.cpu().numpy())
+        st0 = ex.init_state((TX_CHANNELS,))
+        blk = mic[:, : C.BLOCK_SIZE]
+        ms = time_ms(lambda: ex.block(pr, st0, blk))
+        ms_plain = time_ms(lambda: ex_p.block(pr, st0, blk), REPS_PLAIN)
+        result["b"][name] = {"channels": TX_CHANNELS, "blocks": TX_BLOCKS,
+                             "c1_launches": launches,
+                             "iq_snr_db": _finite(snr),
+                             "ms_a_block": ms, "ms_a_block_plain": ms_plain}
+        log(f"# phase 6 (b) SSBExciter {name}: {result['b'][name]} ({card})")
+        if launches != TX_BLOCKS or not snr >= parity.AUDIO_SNR_MIN_DB:
+            raise AssertionError(f"phase 6 (b) {name}: {result['b'][name]}")
+
+    # the radio's transmit entry points, one channel, the default config
+    # (mic_compression -10 < 0: the compressor runs, t41x's rule)
+    radio = Radio(device=dev)
+    voice = signals.voice_proxy(RADIO_TX_BLOCKS * C.BLOCK_SIZE,
+                                fs_audio=C.SAMPLE_RATE)
+    radio.transmit_ssb(voice[: 2 * C.BLOCK_SIZE])   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    iq_tx = radio.transmit_ssb(voice)
+    wall = time.perf_counter() - t0
+    n_c1 = read_counts()["C1"]
+    t0 = time.perf_counter()
+    iq_tx_plain = radio.transmit_ssb(voice[: 4 * C.BLOCK_SIZE],
+                                     use_kernels=False)
+    wall_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cw = radio.transmit_cw("CQ TEST DE K1ABC")
+    wall_cw = time.perf_counter() - t0
+    cw_blocks = len(cw) // C.BLOCK_SIZE
+    c1["launches"] += n_c1
+    c1["blocks"] += RADIO_TX_BLOCKS
+    result["b"]["radio"] = {
+        "transmit_ssb_ms_a_block": wall / RADIO_TX_BLOCKS * 1e3,
+        "transmit_ssb_plain_ms_a_block": wall_plain / 4 * 1e3,
+        "transmit_cw_ms_a_block": wall_cw / cw_blocks * 1e3,
+        "budget_ms": BLOCK_BUDGET_MS, "c1_launches": n_c1,
+        "blocks": RADIO_TX_BLOCKS,
+        "plain_vs_kernel_snr_db": _finite(parity.snr_db(
+            iq_tx_plain, iq_tx[: 4 * C.BLOCK_SIZE])),
+        "cw_peak": float(np.abs(cw).max())}
+    log(f"# phase 6 (b) Radio.transmit_ssb / transmit_cw, 1 channel: "
+        f"{result['b']['radio']} ({card})")
+    r = result["b"]["radio"]
+    if n_c1 != RADIO_TX_BLOCKS or not (
+            r["transmit_ssb_ms_a_block"] < BLOCK_BUDGET_MS
+            and float(r["plain_vs_kernel_snr_db"])
+            >= parity.AUDIO_SNR_MIN_DB
+            and np.isfinite(cw).all() and r["cw_peak"] > 0.1):
+        raise AssertionError(f"phase 6 (b) radio: {r}")
+
+    # the TX -> RX loopback of tests/test_tx.py: voice proxy ->
+    # transmit_ssb -> the port's usb chain at the RX frequency plan
+    n = 30 * C.BLOCK_SIZE
+    vmic = signals.voice_proxy(n, fs_audio=C.SAMPLE_RATE, f_lo=600.0,
+                               f_hi=2400.0)
+    iq_l = radio.transmit_ssb(vmic)
+    t = np.arange(len(iq_l)) / C.SAMPLE_RATE
+    iq_rx = (iq_l * np.exp(-2j * np.pi * (C.SAMPLE_RATE / 4) * t) * 0.01
+             ).astype(np.complex64)
+    chain = RxChain(ChainSpec(mode="usb", interpolate_out=False, agc_mode=0,
+                              use_kernels=True), device=dev)
+    a = chain.run(iq_rx)["audio_24k"].cpu().numpy()[4096:]
+    b = vmic[:: C.DF][4096:]
+    m = min(len(a), len(b))
+    a, b = a[:m], b[:m]
+    xc = np.fft.irfft(np.fft.rfft(a) * np.conj(np.fft.rfft(b)))
+    d = int(np.argmax(np.abs(xc)))
+    d = d - m if d > m // 2 else d
+    fr = np.fft.rfftfreq(m)
+    sb = np.fft.irfft(np.fft.rfft(b) * np.exp(-2j * np.pi * fr * d), m)
+    best = max(signals.snr_db(a[1000:-1000], np.fft.irfft(
+        np.fft.rfft(sb) * np.exp(-2j * np.pi * fr * f), m)[1000:-1000])
+        for f in np.linspace(-1.5, 1.5, 31))
+    result["b"]["loopback_snr_db"] = best
+    log(f"# phase 6 (b) TX -> RX loopback audio SNR {best:.2f} dB")
+    if not best > 10.0:
+        raise AssertionError(f"phase 6 (b): loopback SNR {best}")
+
+    # (c) FT8: a crowded slot of 15 transmit_ft8 signals and a two-signal
+    # slot, decoded by Radio.decode_ft8 on the card; the decoder on the
+    # CPU on the same audio must give the same decodes
+    result["c"] = {}
+    for name, n_sig, seed in (("crowded", FT8_CROWD, 5), ("two", 2, 6)):
+        iq, msgs = _ft8_crowd(radio, n_sig, seed)
+        dec = radio.decode_ft8(iq)
+        audio = radio.receive(iq)["audio_24k"].astype(np.float32)
+        on_card = ft8.decode_audio(audio, my_grid=radio.config.my_grid,
+                                   device=dev)
+        on_cpu = ft8.decode_audio(audio, my_grid=radio.config.my_grid,
+                                  device="cpu")
+
+        def key(ds):
+            # t41x's decoder also accepts the all-zero codeword (CRC 0,
+            # text "") where a candidate sees only silence or the
+            # receiver's rounding noise; the port keeps that, and the
+            # comparisons leave it out
+            return sorted((d.text, d.time_offset, d.freq_hz) for d in ds
+                          if d.bits77.any())
+
+        cpu_score = {d.text: d.score for d in on_cpu if d.bits77.any()}
+        score_err = max((abs(d.score - cpu_score.get(d.text, np.inf))
+                         for d in on_card if d.bits77.any()), default=0.0)
+        texts = [k[0] for k in key(dec)]
+        result["c"][name] = {"decoded": len(texts), "sent": n_sig,
+                             "all_zero_codewords": len(dec) - len(texts),
+                             "texts_equal_sent": texts == sorted(msgs),
+                             "card_equals_cpu": key(on_card) == key(on_cpu),
+                             "max_score_err": score_err}
+        log(f"# phase 6 (c) FT8 {name} slot: {result['c'][name]}")
+        if texts != sorted(msgs) or key(dec) != key(on_card) \
+                or key(on_card) != key(on_cpu) or score_err > 0.01:
+            raise AssertionError(f"phase 6 (c) {name}: {texts} vs "
+                                 f"{sorted(msgs)}; card {key(on_card)}, "
+                                 f"cpu {key(on_cpu)}")
+        if name == "crowded":
+            crowd_audio = audio
+
+    # the decode's time split, median of FT8_REPS after a warm-up
+    def split():
+        marks = [time.perf_counter()]
+        x = torch.from_numpy(crowd_audio).to(dev)
+        wf = waterfall.compute_waterfall(x)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        pool = sync.find_candidates(wf, ft8._K_POOL)
+        k = ft8._pool_bucket(pool.score.cpu().numpy(), ft8.SCORE_FLOOR)
+        cands = sync.Candidates(*(a[:k] for a in pool))
+        marks.append(time.perf_counter())
+        res = ft8._llr_bp(wf, cands, 25)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        out = ft8.messages(res, cands)
+        marks.append(time.perf_counter())
+        return np.diff(marks) * 1e3, k, len(out)
+
+    split()
+    runs = [split() for _ in range(FT8_REPS)]
+    parts = np.median(np.stack([r[0] for r in runs]), axis=0)
+    t0 = time.perf_counter()
+    for _ in range(FT8_REPS):
+        ft8.decode_audio(crowd_audio, device=dev)
+    whole = (time.perf_counter() - t0) / FT8_REPS * 1e3
+    result["c"]["ms_a_slot"] = {
+        "decode_audio": whole, "waterfall": parts[0],
+        "sync_and_pool": parts[1], "llr_and_bp": parts[2],
+        "host_tail": parts[3], "bp_bucket": runs[0][1],
+        "decodes": runs[0][2]}
+    log(f"# phase 6 (c) FT8 decode, crowded slot, ms (median of "
+        f"{FT8_REPS}): {result['c']['ms_a_slot']} ({card})")
+    llr = torch.randn(96, 174, generator=g, device=dev) * 4.0
+    r1, r2 = ldpc.bp_decode(llr), ldpc.bp_decode(llr)
+    if not (torch.equal(r1.bits, r2.bits) and torch.equal(r1.errors,
+                                                          r2.errors)):
+        raise AssertionError("phase 6 (c): bp_decode is not deterministic")
+
+    # (d) a live FT8 slot: the graphed runner in ft8 mode fed at real
+    # time, the wall clock of tests/test_realtime_ft8.py (the next 15 s
+    # boundary 0.2 s into the stream).  The runner gives the slot manager
+    # the slot time of the audio it feeds (the clock read at the first
+    # feed, then the audio's own length), so the boundary falls in the
+    # block that holds it however late that block is fed: one run, and a
+    # missed sync fails it.
+    msg = "CQ K1ABC FN42"
+    from t41x_torch.decode.ft8 import encode
+    iq = encode.synth_iq(msg, base_freq=1000.0, amp=0.4, pad_start_s=0.5,
+                         pad_end_s=2.3)
+    iq = iq[: len(iq) // C.BLOCK_SIZE * C.BLOCK_SIZE]
+    d = result["d"] = _live_ft8_slot(dev, iq, msg)
+    log(f"# phase 6 (d) live FT8 slot at real time: {d} ({card})")
+    if d["synced_s"] is None or not d["synced_s"] < LIVE_SYNC_BY_S \
+            or msg not in d["decoded"] \
+            or not d["t_decode_s"] < d["deadline_s"] \
+            or not d["median_load_percent"] < 100.0 or d["overruns"] \
+            or not (d["graphed"] or dev.type != "cuda"):
+        # on a CPU device (a rehearsal) the runner runs eagerly
+        raise AssertionError(f"phase 6 (d): {d}")
+
+    # (e) PSK31 through Radio.decode_psk31, on the card and on the CPU
+    text = "CQ CQ DE T41"
+    piq = psk31.synth_psk31(text, tone_hz=1000.0)
+    piq = piq[: len(piq) // C.BLOCK_SIZE * C.BLOCK_SIZE]
+    on_card = Radio(device=dev).decode_psk31(piq, tone_hz=1000.0)
+    on_cpu = Radio(device="cpu").decode_psk31(piq, tone_hz=1000.0)
+    result["e"] = {"card": on_card, "cpu": on_cpu}
+    log(f"# phase 6 (e) PSK31: {result['e']}")
+    if text not in on_card or on_card != on_cpu:
+        raise AssertionError(f"phase 6 (e): {result['e']}")
+
+    # (f) the CLI's ft8 and psk31 in a subprocess, against Radio
+    root = Path(__file__).resolve().parent
+    result["f"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cmd, cap_iq, extra, want in (
+                ("ft8", _ft8_crowd(radio, 3, 7)[0], [], None),
+                ("psk31", piq, ["--tone", "1000"], on_card)):
+            cap = os.path.join(tmp, f"{cmd}.wav")
+            wav.write_iq_wav(cap, cap_iq, C.SAMPLE_RATE)
+            cap_iq, _ = wav.read_iq_wav(cap)
+            if cmd == "ft8":
+                want = "\n".join(
+                    _ft8_cli_line(d) for d in Radio(device=dev).decode_ft8(
+                        cap_iq))
+            res = subprocess.run(
+                [sys.executable, "-m", "t41x_torch.cli", cmd, "--in", cap,
+                 *extra, "--device", str(dev)], cwd=root,
+                capture_output=True, text=True,
+                timeout=600)
+            result["f"][cmd] = {"rc": res.returncode,
+                                "stdout": res.stdout.strip()}
+            if res.returncode != 0 or res.stdout.strip() != want.strip() \
+                    or not want.strip():
+                raise AssertionError(f"phase 6 (f) cli {cmd}: "
+                                     f"{res.stderr} {res.stdout} vs {want}")
+    log(f"# phase 6 (f) cli: {result['f']}")
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
+def _ft8_cli_line(d) -> str:
+    from t41x_torch import cli
+
+    return cli._ft8_line(d)
+
+
+def _finite(x: float):
+    """A figure for the JSON line: "inf" where two outputs are equal."""
+    return x if np.isfinite(x) else str(x)
+
+
 def main(argv: list[str]) -> int:
     import torch
     import torch.nn.functional as F
 
     root = None  # --kernels ROOT: phases 1 and 2 on ROOT's t41x_torch
     host_only = argv == ["--host"]  # phases 1 and 5
+    txdec_only = argv == ["--txdec"]  # phases 1 and 6
     if len(argv) == 2 and argv[0] == "--kernels":
         root = Path(argv[1]).resolve()
         sys.path.insert(0, str(root))
-    elif argv and not host_only:
+    elif argv and not (host_only or txdec_only):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -766,6 +1319,7 @@ def main(argv: list[str]) -> int:
         from t41x_torch.dsp.spectrum import ZoomFFT
         from t41x_torch.kernels import _build
         from t41x_torch.kernels import agc as kagc
+        from t41x_torch.kernels import compressor as kcomp
         from t41x_torch.kernels import frontend as kfe
         from t41x_torch.kernels import interp as kint
         from t41x_torch.kernels import nr_gain as knr
@@ -801,7 +1355,8 @@ def main(argv: list[str]) -> int:
                 "K5": (kagc.agc_scan, "launches"),
                 "K6": (ksam.sam_block, "launches"),
                 "K7": (kxanr.xanr_block, "launches"),
-                "K8": (knr.kim_gains, "launches")}
+                "K8": (knr.kim_gains, "launches"),
+                "C1": (kcomp.launch, "launches")}
 
     def reset_counts():
         for obj, attr in counters.values():
@@ -919,8 +1474,8 @@ def main(argv: list[str]) -> int:
             plain_reps=REPS, plain_device=False, library=None):
         """One kernel's line: its device time (profiler), the wrapper's
         and the plain version's times (CUDA events), its bound from
-        `flops` and the bytes of `ins` and `outs`, and the library
-        call's device time where one PyTorch call computes the same."""
+        `flops` and the bytes of `ins` and `outs`, and the library call's
+        device time where one PyTorch call computes the same."""
         dev_us = device_us(fn_k, KERNEL_NAMES[name[:2]])
         wrapper_ms = time_ms(fn_k)
         plain_ms = time_ms(fn_p, plain_reps)
@@ -941,6 +1496,33 @@ def main(argv: list[str]) -> int:
                if plain_dev is not None else "")
             + (f", library call {lib_ms * 1e3:.2f} us" if lib_ms else "")
             + f" per call ({N_CH} channels, {card})")
+
+    def finish(extra: dict) -> int:
+        """The kernels' JSON line, the phases' lines, the card's line and
+        the last line; raises if a kernel row launched on no main path."""
+        for r in rows:
+            r["launches_per_block"] = (r["launches"] / r["blocks"]
+                                       if r["blocks"] else 0.0)
+            del r["blocks"]
+            if r["launches"] == 0:
+                raise AssertionError(f"{r['name']}: launched on no main "
+                                     "path")
+        log(f"# profiler: {len(_spins_dropped)} sessions; spin records "
+            f"dropped at a session's start, by count: "
+            f"{dict(sorted(Counter(_spins_dropped).items()))}")
+        print(json.dumps({"kernels": rows}))
+        for k, v in extra.items():
+            print(json.dumps({k: v}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    count_fns = (reset_counts, read_counts)
+    if txdec_only:
+        return finish({"txdec": tx_decoders(dev, card, rows, row, time_ms,
+                                            count_fns)})
 
     # ---- 2. each kernel against its plain version -------------------------
     rx = RxChain(ChainSpec(use_kernels=True, spectrum_zoom=0), device=dev)
@@ -1059,31 +1641,11 @@ def main(argv: list[str]) -> int:
         OPS_PER_ELEMENT["K5"] * rm.numel(), (c_k, rm, ao),
         kagc.agc_scan(ap, c_k, rm, ao), plain_reps=REPS_PLAIN)
 
-    def log_phases(name, fn, names, loop=None, steps=1):
-        """Where a kernel's time goes: clock64 stamps per phase, mean over
-        the blocks of 10 launches, cold (L2 flushed before each) and
-        warm; the `loop` phase, where there is one, also in cycles a
-        step."""
-        for temp in ("cold", "warm"):
-            fn()
-            stamps = []
-            for _ in range(10):
-                if temp == "cold":
-                    l2_flush()
-                stamps.append(fn())
-            split = kagc.phase_split(torch.cat(stamps), names)
-            ghz = split["sm_ghz"]
-            step = (f"; {loop} {split[loop] * 1e3 * ghz / steps:.1f} cycles "
-                    f"a step" if loop else "")
-            log(f"# {name} phases {temp}, us a block: " + ", ".join(
-                f"{k} {split[k]:.3f}" for k in (*names, "block"))
-                + f"{step} at {ghz:.3f} GHz ({N_CH} channels, {card})")
-
     if hasattr(kagc, "agc_block_phases"):
         log_phases("K2", lambda: kagc.agc_block_phases(ap, st_k, x2)[2],
-                   kagc.K2_PHASES, "recurrence", C.AUDIO_BLOCK)
+                   kagc.K2_PHASES, card, "recurrence", C.AUDIO_BLOCK)
         log_phases("K5", lambda: kagc.agc_scan_phases(ap, c_k, rm, ao)[2],
-                   kagc.K5_PHASES, "recurrence", AGC_PIECE)
+                   kagc.K5_PHASES, card, "recurrence", AGC_PIECE)
 
     # K3 on a contiguous row and, as the chain calls it, on the real part
     # of a complex64 block (`y.real`, element stride 2).  The imaginary
@@ -1129,7 +1691,7 @@ def main(argv: list[str]) -> int:
         library=lambda: F.conv_transpose1d(xh, w8, stride=C.DF))
     if hasattr(kint, "interp_phases"):
         log_phases("K3", lambda: kint.interp_phases(fi, ar, *hs, vol)[3],
-                   kint.K3_PHASES)
+                   kint.K3_PHASES, card)
 
     W = rx.tensors["os_W"]
     # W's planes, packed once by the chain (a tree whose wrapper packs W
@@ -1178,7 +1740,7 @@ def main(argv: list[str]) -> int:
         ksam.sam_block(sp, st_k, y), plain_reps=REPS_PLAIN)
     if hasattr(ksam, "sam_block_phases"):
         log_phases("K6", lambda: ksam.sam_block_phases(sp, st_k, y)[2],
-                   ksam.K6_PHASES, "phase loop", C.AUDIO_BLOCK)
+                   ksam.K6_PHASES, card, "phase loop", C.AUDIO_BLOCK)
 
     # K7: noise at the level of the chain's audio; leak indices at the
     # two fixed points of the reference's lidx quirk (120: clamped at the
@@ -1209,7 +1771,7 @@ def main(argv: list[str]) -> int:
         if hasattr(kxanr, "xanr_block_phases"):
             log_phases(f"K7 {'notch' if notch else 'nr'}",
                        lambda: kxanr.xanr_block_phases(xp, st_k, x)[2],
-                       kxanr.K7_PHASES, "loop", C.AUDIO_BLOCK)
+                       kxanr.K7_PHASES, card, "loop", C.AUDIO_BLOCK)
 
     # K8: two hops a block, bin powers whose level changes from block to
     # block so the minimum statistics and the psi rule both move.
@@ -1493,21 +2055,11 @@ def main(argv: list[str]) -> int:
         profile(name, blk, pr)
 
     # ---- 5. the host layers -------------------------------------------------
-    runner = host_layers(dev, card, N_CH, stim, (reset_counts, read_counts))
+    runner = host_layers(dev, card, N_CH, stim, count_fns)
 
-    for r in rows:
-        r["launches_per_block"] = (r["launches"] / r["blocks"]
-                                   if r["blocks"] else 0.0)
-        del r["blocks"]
-        if r["launches"] == 0:
-            raise AssertionError(f"{r['name']}: launched on no main path")
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"runner": runner}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    # ---- 6. the transmit chains and the decoders ---------------------------
+    txdec = tx_decoders(dev, card, rows, row, time_ms, count_fns)
+    return finish({"runner": runner, "txdec": txdec})
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@ The first form runs each kernel row of `chip_smoke.py` phase 2 once at
 small odd channel counts (7 and 33; K1 zoom None/0 in complex64 and
 q15, K1z at zoom 1, 3 and 7 and zoom 1 in q15, K2, K3 on a contiguous
 row and on the real part of a complex64 row, K4, K5, K6, K7 in NR and
-notch form, K8), each twice on the same inputs, and fails unless the two
+notch form, K8, and C1, the transmit chain's compressor of phase 6),
+each twice on the same inputs, and fails unless the two
 runs agree bit for bit: a race that changes what a kernel computes
 shows there.  No profiler and no plain versions, so that the form is
 quick under a sanitizer.
@@ -97,6 +98,7 @@ def kernel_rows(dev, ch: int, gen):
     from t41x_torch.demod import sam as sam_mod
     from t41x_torch.dsp import agc as agc_mod, nr as nr_mod
     from t41x_torch.dsp.spectrum import ZoomFFT
+    from t41x_torch.chain import compressor as comp_mod
     from t41x_torch.kernels import agc as kagc
     from t41x_torch.kernels import frontend as kfe
     from t41x_torch.kernels import interp as kint
@@ -183,11 +185,18 @@ def kernel_rows(dev, ch: int, gen):
     g = (ks.X, ks.E, ks.Gts, ks.idx)
     pw = torch.rand(2, ch, nr_mod.HOP, generator=gen, device=dev)
     rows.append(("K8 kim_gains", lambda: knr.kim_gains(kp, g, pw)))
+
+    cp = comp_mod.compressor_params()
+    cst = comp_mod.CompressorState(
+        -80.0 + 90.0 * torch.rand(ch, generator=gen, device=dev))
+    xc = randn(ch, C.BLOCK_SIZE, scale=0.5)
+    rows.append(("C1 compressor", lambda: comp_mod.compress(cp, cst, xc)))
     return rows
 
 
 def launches() -> int:
     from t41x_torch.kernels import agc as kagc
+    from t41x_torch.kernels import compressor as kcomp
     from t41x_torch.kernels import frontend as kfe
     from t41x_torch.kernels import interp as kint
     from t41x_torch.kernels import nr_gain as knr
@@ -197,7 +206,8 @@ def launches() -> int:
     return (kfe.FusedFrontEnd.launches + kagc.agc_block.launches
             + kagc.agc_scan.launches + kint.FusedInterp.launches
             + kos.os_filter_matmul_kernel.launches + ksam.sam_block.launches
-            + kxanr.xanr_block.launches + knr.kim_gains.launches)
+            + kxanr.xanr_block.launches + knr.kim_gains.launches
+            + kcomp.launch.launches)
 
 
 def run_rows() -> int:

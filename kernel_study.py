@@ -5,6 +5,7 @@ split of the original K3, and variants of K3's thread shape.
     python3 kernel_study.py sass SOURCE.cu [...]     (needs nvcc)
     python3 kernel_study.py k3-split                 (needs a card)
     python3 kernel_study.py k3-variants ROOT         (needs a card)
+    python3 kernel_study.py profiler-loss            (needs a card)
 
 `sass` compiles each CUDA source with the flags of
 `t41x_torch/kernels/_build.py` and prints, for every kernel in it, its
@@ -24,6 +25,12 @@ L2 flushed before each launch, in three rounds of alternating order, on
 the chain's input (the real part of a complex64 block), with an empty
 kernel's time for the events' own overhead.  Every variant is first
 held against the plain version bit for bit.
+
+`profiler-loss` runs the whole `chip_smoke.py` and, after each of its
+profiler measurements, profiles the same calls once more without the
+leading spin kernels, and prints how many of the session's recorded
+launches (runtime calls) have no device record, and whether those are
+the session's first launches.
 """
 
 from __future__ import annotations
@@ -308,12 +315,50 @@ def k3_variants(root: str) -> int:
     return 0
 
 
+def profiler_loss() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+
+    kernel_us = cs.kernel_us
+    cpu = torch.autograd.DeviceType.CPU
+
+    def bare_session(body, n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                body()
+            torch.cuda.synchronize()
+        evs = prof.profiler.kineto_results.events()
+        recorded = {e.correlation_id() for e in evs
+                    if e.device_type() != cpu}
+        launches = [e.correlation_id() for e in evs if e.name().startswith(
+            ("cudaLaunch", "cudaMemsetAsync", "cudaMemcpy"))]
+        return launches, [i for i, c in enumerate(launches)
+                          if c not in recorded]
+
+    def measured(body, n, check=None):
+        out = kernel_us(body, n, check)
+        launches, missing = bare_session(body, n)
+        first = missing == list(range(len(missing)))
+        print(f"# profiler-loss: {n} calls without spins, "
+              f"{len(launches)} launches recorded, {len(missing)} without "
+              f"a device record"
+              + (f" ({'the first ones' if first else 'not the first'})"
+                 if missing else ""), flush=True)
+        return out
+
+    cs.kernel_us = measured
+    return cs.main([])
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, str(HERE))
     if len(argv) >= 2 and argv[0] == "sass":
         return sass(argv[1:])
-    if argv != ["k3-split"] and not (len(argv) == 2
-                                     and argv[0] == "k3-variants"):
+    if argv not in (["k3-split"], ["profiler-loss"]) and not (
+            len(argv) == 2 and argv[0] == "k3-variants"):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -321,6 +366,8 @@ def main(argv: list[str]) -> int:
         print("kernel_study: no CUDA device visible to torch",
               file=sys.stderr)
         return 2
+    if argv[0] == "profiler-loss":
+        return profiler_loss()
     return k3_split() if argv[0] == "k3-split" else k3_variants(argv[1])
 
 

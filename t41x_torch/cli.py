@@ -1,15 +1,17 @@
 """t41x_torch command-line interface: port of `t41x.cli`.
 
     python -m t41x_torch.cli rx      --in cap.wav --mode usb --out audio.wav
+    python -m t41x_torch.cli ft8     --in cap.wav
     python -m t41x_torch.cli cw      --in cap.wav
+    python -m t41x_torch.cli psk31   --in cap.wav --tone 1000
     python -m t41x_torch.cli operate --in cap.wav
     python -m t41x_torch.cli info
 
 Captures are stereo WAV files (L=I, R=Q) at 192 kHz.  Config persists to
 --config (JSON, the EEPROM/SD analog; the same file `t41x` reads).
-Each subcommand takes --device (default cuda; cpu runs the chain's
-plain torch versions).  `ft8` and `psk31` exit non-zero: the decoders
-are not in the port yet.
+`ft8` also takes a mono audio WAV (the reference's WAV test mode).
+Each subcommand takes --device (default cuda; cpu runs the chain's and
+the decoders' plain torch versions).
 """
 
 from __future__ import annotations
@@ -17,6 +19,15 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _ft8_line(d) -> str:
+    """One decode line like the reference's message display
+    (`ft8.cpp:900-905`: SNR, distance, message)."""
+    dist = f"{d.distance_km:6.0f} km" if d.distance_km is not None \
+        else "      - "
+    return (f"{d.freq_hz:7.1f} Hz  {d.snr_db:+5.1f} dB  {dist}  "
+            f"{d.text}")
 
 
 def main(argv=None) -> int:
@@ -73,12 +84,6 @@ def main(argv=None) -> int:
         print(json.dumps(cfg.to_dict(), indent=2))
         return 0
 
-    if args.cmd in ("ft8", "psk31"):
-        from t41x_torch.radio import DECODERS_TODO
-
-        print(f"t41x_torch {args.cmd}: {DECODERS_TODO}", file=sys.stderr)
-        return 2
-
     import numpy as np
 
     from t41x_torch.io import wav
@@ -128,7 +133,25 @@ def main(argv=None) -> int:
             cfg.save(args.config)
         return 0
 
-    iq, rate = wav.read_iq_wav(args.inp)
+    if args.cmd == "ft8":
+        # the reference's WAV test mode plays mono audio recordings
+        # (DEMOD_FT8_WAV, Process.cpp:278-374); accept those directly
+        data, rate = wav.read_wav(args.inp)
+        if data.ndim == 1:
+            if rate != 24000:  # linear-resample to the audio rate
+                t_out = np.arange(int(len(data) * 24000 / rate)) / 24000
+                data = np.interp(t_out, np.arange(len(data)) / rate,
+                                 data).astype(np.float32)
+            from t41x_torch.decode.ft8 import decode as ft8dec
+            for d in ft8dec.decode_audio(data, my_grid=cfg.my_grid,
+                                         device=radio.device):
+                print(_ft8_line(d))
+            if args.config:
+                cfg.save(args.config)
+            return 0
+        iq = (data[:, 0] + 1j * data[:, 1]).astype(np.complex64)
+    else:
+        iq, rate = wav.read_iq_wav(args.inp)
     if args.nco is not None:
         radio.set_fine_tune(args.nco)
 
@@ -170,8 +193,13 @@ def main(argv=None) -> int:
                       f"{img.shape[0]} panadapter")
             if args.ascii_spectrum:
                 print(display.ascii_spectrum(spec_db[-1]))
+    elif args.cmd == "ft8":
+        for d in radio.decode_ft8(iq):
+            print(_ft8_line(d))
     elif args.cmd == "cw":
         print(radio.decode_cw(iq))
+    elif args.cmd == "psk31":
+        print(radio.decode_psk31(iq, tone_hz=args.tone))
 
     if args.config:
         cfg.save(args.config)

@@ -136,6 +136,16 @@ def dc_block_biquad():
     return b, a
 
 
+def decimation_prototypes(lp_hz: float | None = None):
+    """Anti-alias LP prototypes for the x4 and x2 decimators of the
+    transmit chain (reference `SetDecIntFilters`, `Filter.cpp:396-438`;
+    defaults `T41_SDR.ino:571-592`).  Returns (h1, h2) float64 taps."""
+    lp = C.N_DESIRED_BW * 1000.0 if lp_hz is None else min(lp_hz, 10_000.0)
+    h1 = fir_kaiser(C.dec1_taps(), lp, C.N_ATT, fs=C.SAMPLE_RATE)
+    h2 = fir_kaiser(C.dec2_taps(), lp, C.N_ATT, fs=C.SAMPLE_RATE / C.DF1)
+    return h1, h2
+
+
 def interpolation_prototypes(lp_hz: float | None = None):
     """LP prototypes for the x2 and x4 interpolators back to 192 kHz
     (reference `Filter.cpp:415-416`, `T41_SDR.ino:595-616`)."""

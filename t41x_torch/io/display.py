@@ -22,8 +22,7 @@ Design deviations (TPU-first, documented per PARITY.md):
   panadapter for terminals, instead of RA8875 layer blits.
 
 A copy of `t41x.io.display`, so the port never imports JAX
-(`tests/test_torch_host_copies.py` pins the two equal); the two map
-renderers, which need the decoders, are not here yet.
+(`tests/test_torch_host_copies.py` pins the two equal).
 """
 
 from __future__ import annotations
@@ -156,6 +155,105 @@ def snr_color(snr_db: float) -> tuple[int, int, int]:
     if not np.isfinite(snr_db) or snr_db <= 0:
         return SNR_COLORS[0]
     return SNR_COLORS[min(int(snr_db // 6), len(SNR_COLORS) - 1)]
+
+
+def render_beacon_map(beacon_report, home_grid: str | None = None,
+                      band_index: int = 0, scale: int = 3) -> np.ndarray:
+    """World-map beacon SNR display (reference `DisplayBeaconsSNR`
+    `Beacon.cpp:297`): an equirectangular canvas with one colored patch
+    per NCDXF beacon, colored by measured SNR on the selected band, plus
+    the operator QTH marker.
+
+    The reference blits a BMP world map from SD; here the map is a
+    graticule canvas (no bundled bitmap), and the observable product —
+    beacon position + SNR color — is identical.  Returns
+    (180*scale, 360*scale, 3) uint8.
+    """
+    from t41x_torch.decode.beacon import BEACONS
+    from t41x_torch.decode.locator import grid_to_latlon
+
+    h, w = 180 * scale, 360 * scale
+    img = np.zeros((h, w, 3), np.uint8)
+    img[..., :] = (8, 12, 28)
+    # graticule every 30°
+    for lat in range(-90, 91, 30):
+        img[min(int((90 - lat) * scale), h - 1), :, :] = (30, 36, 60)
+    for lon in range(-180, 181, 30):
+        img[:, min(int((lon + 180) * scale), w - 1), :] = (30, 36, 60)
+
+    def patch(lat, lon, color, r):
+        y = int((90.0 - lat) * scale)
+        x = int((lon + 180.0) * scale)
+        img[max(y - r, 0): y + r + 1, max(x - r, 0): x + r + 1] = color
+
+    snr = np.asarray(beacon_report.snr)
+    for i, (call, grid) in enumerate(BEACONS):
+        lat, lon = grid_to_latlon(grid)
+        patch(lat, lon, snr_color(float(snr[i, band_index])), scale)
+    if home_grid:
+        lat, lon = grid_to_latlon(home_grid)
+        patch(lat, lon, (255, 255, 255), scale + 1)
+    return img
+
+
+def render_bearing_map(home_grid: str, callsign: str,
+                       scale: int = 3) -> tuple[np.ndarray, dict]:
+    """DX bearing map (reference `bmpDraw` + `BeaconBearingHeading`
+    `Bearing.cpp:825,1034`): world canvas with the operator QTH, the DX
+    country location (longest-prefix DXCC lookup), and the great-circle
+    path between them.  The reference blits a BMP from SD and draws the
+    heading line; the observable product — endpoints, path, heading and
+    distance — is identical.  Returns (image, info dict)."""
+    from t41x_torch.decode import bearing as bearing_mod
+    from t41x_torch.decode.locator import (bearing_deg, distance_km,
+                                     grid_to_latlon)
+
+    country = bearing_mod.find_country(callsign)
+    if country is None:
+        raise ValueError(f"no DXCC match for callsign {callsign!r}")
+    dx_grid = country.grid
+    heading = bearing_deg(home_grid, dx_grid)
+    dist = distance_km(home_grid, dx_grid)
+
+    h, w = 180 * scale, 360 * scale
+    img = np.zeros((h, w, 3), np.uint8)
+    img[..., :] = (8, 12, 28)
+    for lat in range(-90, 91, 30):
+        img[min(int((90 - lat) * scale), h - 1), :, :] = (30, 36, 60)
+    for lon in range(-180, 181, 30):
+        img[:, min(int((lon + 180) * scale), w - 1), :] = (30, 36, 60)
+
+    def to_xy(lat, lon):
+        return (int((90.0 - lat) * scale), int((lon + 180.0) * scale))
+
+    def patch(lat, lon, color, r):
+        y, x = to_xy(lat, lon)
+        img[max(y - r, 0): y + r + 1, max(x - r, 0): x + r + 1] = color
+
+    # great-circle path via slerp between the unit vectors
+    la1, lo1 = np.radians(grid_to_latlon(home_grid))
+    la2, lo2 = np.radians(grid_to_latlon(dx_grid))
+    v1 = np.array([np.cos(la1) * np.cos(lo1), np.cos(la1) * np.sin(lo1),
+                   np.sin(la1)])
+    v2 = np.array([np.cos(la2) * np.cos(lo2), np.cos(la2) * np.sin(lo2),
+                   np.sin(la2)])
+    omega = np.arccos(np.clip(np.dot(v1, v2), -1.0, 1.0))
+    for f in np.linspace(0.0, 1.0, 256):
+        if omega < 1e-9:
+            v = v1
+        else:
+            v = (np.sin((1 - f) * omega) * v1 + np.sin(f * omega) * v2) \
+                / np.sin(omega)
+        lat = np.degrees(np.arcsin(np.clip(v[2], -1.0, 1.0)))
+        lon = np.degrees(np.arctan2(v[1], v[0]))
+        y, x = to_xy(lat, lon)
+        img[min(y, h - 1), min(x, w - 1)] = (255, 210, 60)
+
+    patch(*grid_to_latlon(home_grid), (255, 255, 255), scale + 1)
+    patch(*grid_to_latlon(dx_grid), (255, 60, 60), scale + 1)
+    info = {"country": country.name, "grid": dx_grid,
+            "bearing_deg": heading, "distance_km": dist}
+    return img, info
 
 
 def render_smeter(dbm: float, width: int = 360, height: int = 24

@@ -20,8 +20,8 @@ ASCII — usable interactively over stdin or a TCP socket.
 socket (multi-line replies are blank-line terminated).
 
 The commands and their replies are `t41x`'s.  `cal rx` runs the port's
-IQ correction on the radio's device; `cal tx` needs the transmit chain,
-which the port does not have yet, and says so.
+IQ correction, and `cal tx` the port's SSB exciter, on the radio's
+device.
 """
 
 from __future__ import annotations
@@ -132,11 +132,6 @@ class OperatorSession:
         if cmd == "mode":
             if args[0] not in MODES:
                 raise ValueError(f"mode must be one of {MODES}")
-            if args[0] == "ft8":
-                from t41x_torch.radio import DECODERS_TODO
-
-                # the live runner would stop at its next block
-                raise ValueError(f"live FT8 decoding is {DECODERS_TODO}")
             radio.set_mode(args[0])
             return f"mode {args[0]}"
         if cmd == "agc":
@@ -294,13 +289,48 @@ class OperatorSession:
 
     def _cal_tx(self, tone_hz: float) -> str:
         """The MenuProc calibrate flow (`DoXmitCalibrate`
-        `Process2.cpp:226-293`) drives a cal tone through the SSB
-        exciter, which the port does not have yet: the answer says so."""
+        `Process2.cpp:226-293`): cal tone through the TX IQ-correction
+        path, through the loopback, coordinate descent on the TX
+        correction factors against measured image rejection, then
+        write-through to config (the reference EEPROMWrites in
+        `CalibratePrologue`).  The exciter runs on the radio's device."""
         if self.loopback is None:
             return ("no TX->RX loopback attached — pass "
                     "OperatorSession(runner, loopback=fn)")
-        return ("no TX chain in t41x_torch yet — TX IQ calibration comes "
-                "with the TX slice (ROADMAP.md Queue 1, item 3)")
+        import torch
+
+        from t41x_torch.chain import cal as cal_mod, tx
+
+        cfg = self.radio.config
+        dev = self.radio.device
+        n = 4 * C.BLOCK_SIZE
+        t = np.arange(n) / C.SAMPLE_RATE
+        mic = (0.3 * np.sin(2 * np.pi * tone_hz * t)).astype(np.float32)
+        mic_t = torch.from_numpy(mic).to(dev)
+        ex = tx.SSBExciter(tx.TxSpec(
+            sideband="lsb" if cfg.band.mode == "lsb" else "usb"), device=dev)
+
+        def measure(amp: float, phase: float) -> float:
+            p = tx.default_tx_params(device=dev)._replace(
+                iq_amp=torch.tensor(amp, dtype=torch.float32, device=dev),
+                iq_phase=torch.tensor(phase, dtype=torch.float32,
+                                      device=dev))
+            st = ex.init_state(())
+            outs = []
+            for b in range(n // C.BLOCK_SIZE):
+                st, iq = ex.block(p, st, mic_t[b * C.BLOCK_SIZE:
+                                               (b + 1) * C.BLOCK_SIZE])
+                outs.append(iq)
+            iq = torch.cat(outs)[C.BLOCK_SIZE:].cpu().numpy()
+            return cal_mod.image_rejection_db(self.loopback(iq), tone_hz)
+
+        amp, phase, best = cal_mod.calibrate_iq(
+            measure, float(cfg.band.iq_amp_correction_tx),
+            float(cfg.band.iq_phase_correction_tx))
+        cfg.band.iq_amp_correction_tx = float(amp)
+        cfg.band.iq_phase_correction_tx = float(phase)
+        return (f"TX cal: amp {amp:.4f} phase {phase:+.4f} "
+                f"image rejection {best:.1f} dB")
 
     def _render_rf_spectrum(self) -> str:
         from t41x_torch.io import display

@@ -12,8 +12,9 @@ updates the `ChannelParams` tensors.  The control surface is
 `t41x.radio.Radio`'s, line for line.  The radio runs on the card unless
 the caller passes `device="cpu"`; on the card the chain's stages take
 their CUDA kernels (`ChainSpec.use_kernels`), on the CPU their plain
-torch versions.  The FT8 and PSK31 decoders and the transmit chains are
-not in the port yet: those entry points raise `NotImplementedError`.
+torch versions.  The decoders' dense stages (FT8's waterfall, sync and
+LDPC, PSK31's symbol integrator) and the transmit chains run on the
+same device.
 """
 
 from __future__ import annotations
@@ -26,11 +27,6 @@ import torch
 from t41x_torch import constants as C
 from t41x_torch.chain import ChainSpec, ChannelParams, RxChain, default_params
 from t41x_torch.config import RadioConfig
-
-DECODERS_TODO = ("not in t41x_torch yet: the FT8 and PSK31 decoders come "
-                 "with the decoder slice (ROADMAP.md Queue 1, item 4)")
-TX_TODO = ("not in t41x_torch yet: the transmit chains come with the TX "
-           "slice (ROADMAP.md Queue 1, item 3)")
 
 
 class Radio:
@@ -294,7 +290,13 @@ class Radio:
 
     # --- decoders ------------------------------------------------------
     def decode_ft8(self, iq: np.ndarray) -> list:
-        raise NotImplementedError(f"Radio.decode_ft8: {DECODERS_TODO}")
+        self.set_mode("ft8")
+        out = self.receive(iq)
+        from t41x_torch.decode.ft8 import decode as ft8
+
+        return ft8.decode_audio(out["audio_24k"].astype(np.float32),
+                                my_grid=self.config.my_grid,
+                                device=self.device)
 
     def decode_cw(self, iq: np.ndarray) -> str:
         self.set_mode("cw")
@@ -304,15 +306,73 @@ class Radio:
         return cw_text.decode_envelope(out["cw_keyed"].astype(bool))
 
     def decode_psk31(self, iq: np.ndarray, tone_hz: float = 1000.0) -> str:
-        raise NotImplementedError(f"Radio.decode_psk31: {DECODERS_TODO}")
+        self.set_mode("psk31")
+        out = self.receive(iq)
+        from t41x_torch.decode import psk31
+
+        return psk31.decode_capture(out["iq_baseband"], tone_hz=tone_hz,
+                                    device=self.device)
 
     # --- transmit ------------------------------------------------------
-    def transmit_ssb(self, mic: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(f"Radio.transmit_ssb: {TX_TODO}")
+    def transmit_ssb(self, mic: np.ndarray,
+                     use_kernels: bool = True) -> np.ndarray:
+        """Mic audio (192 kHz float) -> SSB I/Q at 192 kHz (the QSE
+        drive signal), using the band sideband and TX corrections.  As
+        in t41x the mic compressor runs when `mic_compression < 0`,
+        which the default config is; on the card it launches C1 unless
+        `use_kernels` is False (its plain loop, for comparison)."""
+        from t41x_torch.chain import tx
+
+        cfg, dev = self.config, self.device
+        spec = tx.TxSpec(sideband="lsb" if cfg.band.mode == "lsb" else "usb",
+                         eq_on=cfg.xmit_eq_on,
+                         compressor_on=cfg.mic_compression < 0,
+                         use_kernels=use_kernels)
+        ex = tx.SSBExciter(spec, device=dev)
+        params = tx.default_tx_params(device=dev)._replace(
+            iq_amp=torch.tensor(cfg.band.iq_amp_correction_tx,
+                                dtype=torch.float32, device=dev),
+            iq_phase=torch.tensor(cfg.band.iq_phase_correction_tx,
+                                  dtype=torch.float32, device=dev),
+            eq_gains=torch.tensor(cfg.equalizer_xmt, dtype=torch.float32,
+                                  device=dev) / 100.0)
+        st = ex.init_state(())
+        outs = []
+        nb = len(mic) // C.BLOCK_SIZE
+        for b in range(nb):
+            blk = np.asarray(mic[b * C.BLOCK_SIZE:(b + 1) * C.BLOCK_SIZE],
+                             np.float32)
+            st, iq = ex.block(params, st, torch.from_numpy(blk).to(dev))
+            outs.append(iq)
+        return torch.cat(outs).cpu().numpy()
 
     def transmit_cw(self, text: str, wpm: float | None = None) -> np.ndarray:
-        raise NotImplementedError(f"Radio.transmit_cw: {TX_TODO}")
+        """Keyed CW I/Q at 192 kHz for a text message (keyer state
+        machine -> shaped quadrature sidetone)."""
+        from t41x_torch.chain import tx
+        from t41x_torch.io import signals
+
+        cfg = self.config
+        wpm = wpm or cfg.cw_wpm
+        ex = tx.CWExciter(tone_hz=cfg.cw_sidetone_hz, device=self.device)
+        env = signals.cw_keying_envelope(
+            signals.text_to_morse_pattern(text), wpm,
+            int((len(text) * 12.0 / wpm + 1.0) * C.SAMPLE_RATE))
+        nb = len(env) // C.BLOCK_SIZE
+        drive = float(tx.cw_power_scale(torch.tensor(
+            cfg.cw_power, dtype=torch.float32)) / 20.0)
+        st = ex.init_state(())
+        outs = []
+        for b in range(nb):
+            key = env[b * C.BLOCK_SIZE:(b + 1) * C.BLOCK_SIZE].mean() > 0.5
+            st, iq = ex.block(st, float(key), drive)
+            outs.append(iq)
+        return torch.cat(outs).cpu().numpy()
 
     def transmit_ft8(self, message: str,
                      base_freq: float = 1200.0) -> np.ndarray:
-        raise NotImplementedError(f"Radio.transmit_ft8: {DECODERS_TODO}")
+        """FT8 message -> 192 kHz I/Q (GFSK tones as a USB signal)."""
+        from t41x_torch.decode.ft8 import encode
+
+        return encode.synth_iq(message, base_freq=base_freq,
+                               nco=self.config.nco_freq)

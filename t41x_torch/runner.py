@@ -10,8 +10,11 @@ one core.  Here:
     (`t41x_torch.io.runtime`),
   * the runner pops blocks, runs the chain, meters load (the
     reference's CPU-load %), and
-  * publishes spectrum/S-meter frames to the control server and feeds
-    the CW decoder incrementally.
+  * publishes spectrum/S-meter frames to the control server, feeds the
+    CW decoder incrementally and, in ft8 mode, the FT8 slot manager,
+    which decodes each completed 15 s slot eagerly, outside the graph.
+    The slot manager reads the slot time of the audio it is fed
+    (`_fed_clock`), not the clock at the moment of the feed.
 
 Control changes (band/mode/tune via the `Radio` API, the CAT server or
 the operator session) take effect between blocks.
@@ -40,12 +43,34 @@ from t41x_torch import constants as C
 from t41x_torch.chain import ChannelParams
 from t41x_torch.dsp.spectrum import smeter_dbm
 from t41x_torch.io.runtime import BlockRing, LoadMeter
-from t41x_torch.radio import DECODERS_TODO, Radio
+from t41x_torch.radio import Radio
 from t41x_torch.utils.checkpoint import flatten_with_path, map_leaves
 
 # what the host reads after a block or a batch (t41x.runner's reads)
 _TAPS = ("rf_spectrum", "audio_spectrum", "smeter_avg")
 _CLIPS = ("adc_half_clip", "adc_quarter_clip")
+
+
+def _fed_clock(clock, slots):
+    """The slot time of the first sample of the audio `slots` (a
+    `SlotManager`) is about to take: `clock` read once, at the first
+    feed, then advanced by the audio fed since.  t41x's slot manager
+    (copied) syncs only on a feed whose clock reading lies within that
+    feed's own length before the 15 s boundary; a live feed lands some
+    time after its audio was captured, later still after a slow step, so
+    with the clock read at every feed a late feed steps past the
+    boundary and the manager waits a whole slot (1 of 6 live slots on
+    the card).  Counted from the audio, the boundary falls in the block
+    that holds it.  After its sync the manager counts samples itself."""
+    anchor = []
+
+    def now() -> float:
+        fed = slots.samples_fed / slots.rate
+        if not anchor:
+            anchor.append(clock() - fed)
+        return anchor[0] + fed
+
+    return now
 
 
 def _leaves(tree) -> list:
@@ -126,11 +151,11 @@ class StreamRunner:
     and replay CUDA graphs on a CUDA radio (False: run the chain
     eagerly).
 
-    The S-meter, the CW keying and Codec_gain follow the operator
-    channel, channel 0 of the batch, in `step` as in `step_batch`.
-    (`t41x.runner.StreamRunner.step` converts the whole (channels,)
-    S-meter and keying arrays to one float and one bool, which raises
-    for any channel batch.)"""
+    The S-meter, the CW keying, the FT8 slots and Codec_gain follow the
+    operator channel, channel 0 of the batch, in `step` as in
+    `step_batch`.  (`t41x.runner.StreamRunner.step` converts the whole
+    (channels,) S-meter and keying arrays to one float and one bool,
+    which raises for any channel batch.)"""
 
     def __init__(self, radio: Radio, ring: BlockRing | None = None,
                  control_server=None, cat_handler=None, slot_clock=None,
@@ -159,6 +184,7 @@ class StreamRunner:
         self._chain = None
         self._graph_of: dict[str, _Graph] = {}
         self._morse = None
+        self._ft8_slots = None
         self._codec_gain = None
         self.audio_chunks: list[np.ndarray] = []
         self.keep_audio = False
@@ -170,9 +196,6 @@ class StreamRunner:
     def _ensure_chain(self):
         chain = self.radio.chain  # rebuilds on config change
         if chain is not self._chain:
-            if chain.spec.mode == "ft8":
-                raise NotImplementedError(
-                    f"StreamRunner: live FT8 slot decoding is {DECODERS_TODO}")
             if self._graph_of:
                 # release the old spec's graphs and their memory pools
                 self._graph_of = {}
@@ -183,6 +206,22 @@ class StreamRunner:
                 from t41x_torch.decode.cw_text import MorseDecoder
 
                 self._morse = MorseDecoder(wpm_hint=self.radio.config.cw_wpm)
+            if chain.spec.mode == "ft8":
+                from t41x_torch.decode.ft8 import decode as ft8_decode
+                from t41x_torch.decode.ft8 import message
+                from t41x_torch.decode.ft8.slots import SlotManager
+
+                # t41x's default decode_fn, on the radio's device
+                my_grid = self.radio.config.my_grid
+                self._ft8_slots = SlotManager(
+                    decode_fn=functools.partial(
+                        ft8_decode.decode_audio,
+                        hashes=message.CallHashTable(), my_grid=my_grid,
+                        device=self.device),
+                    my_grid=my_grid)
+                if self.slot_clock is not None:
+                    self._ft8_slots.clock = _fed_clock(self.slot_clock,
+                                                       self._ft8_slots)
         return chain
 
     def _shape(self, batch: bool) -> tuple:
@@ -220,8 +259,10 @@ class StreamRunner:
 
     def _streams(self) -> tuple:
         """The outputs read back for every block: the audio when it is
-        kept, the CW keying when the decoder runs."""
-        return ((("audio_24k",) if self.keep_audio else ())
+        kept or the FT8 slots take it, the CW keying when the decoder
+        runs."""
+        audio = self.keep_audio or self._ft8_slots is not None
+        return ((("audio_24k",) if audio else ())
                 + (("cw_keyed",) if self._morse is not None else ()))
 
     def _publish_smeter(self, avg) -> None:
@@ -302,6 +343,10 @@ class StreamRunner:
             text = self._morse.feed([bool(host["cw_keyed"][ch0])])
             if text:
                 results["cw_text"] = text
+        if self._ft8_slots is not None:
+            decoded = self._ft8_slots.feed(host["audio_24k"][ch0])
+            if decoded:
+                results["ft8"] = decoded
         if "adc_half_clip" in host:
             self._apply_codec_gain(host["adc_half_clip"][None],
                                    host["adc_quarter_clip"][None])
@@ -324,7 +369,8 @@ class StreamRunner:
     def step_batch(self) -> dict | None:
         """Process `batch_blocks` ring entries in ONE chain call (None if
         fewer are queued).  Display taps publish from the batch's last
-        block; the CW decoder is fed every block's keying."""
+        block; the CW decoder is fed every block's keying, the FT8 slots
+        every block's audio."""
         if self.ring.available() < self.batch_blocks:
             return None
         blocks = [self.ring.pop_iq().reshape(self.channels + (C.BLOCK_SIZE,))
@@ -362,6 +408,11 @@ class StreamRunner:
             text = self._morse.feed([bool(k[ch0]) for k in keyed])
             if text:
                 results["cw_text"] = text
+        if self._ft8_slots is not None:
+            decoded = self._ft8_slots.feed(
+                host["audio_24k"][(slice(None),) + ch0].reshape(-1))
+            if decoded:
+                results["ft8"] = decoded
         if "adc_half_clip" in host:
             self._apply_codec_gain(host["adc_half_clip"],
                                    host["adc_quarter_clip"])

@@ -5,7 +5,9 @@ JAX) arrays; the port keeps the same fields as tensors.  These helpers
 convert leaf by leaf, so a stream can start in one package and continue
 in the other mid-way.  Every nested state (AGC, SAM, Kim/spectral/LMS NR,
 notch, CW detector, zoom 2^z panadapter) is rebuilt as the port's
-NamedTuple of the same field names.
+NamedTuple of the same field names.  The transmit chains' `TxParams`,
+`SSBState` (its mic compressor state nested) and `CWState` cross the
+same way.
 Nothing here imports `t41x`: a state going back keeps the port's
 NamedTuple types with NumPy leaves, which `t41x`'s chain reads by field
 name like its own.
@@ -16,7 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from t41x_torch.chain.compressor import CompressorState
 from t41x_torch.chain.rx import ChannelParams, RxState
+from t41x_torch.chain.tx import CWState as TxCWState
+from t41x_torch.chain.tx import SSBState, TxParams
 from t41x_torch.demod.cw import CWState
 from t41x_torch.demod.sam import SAMState
 from t41x_torch.dsp.agc import AGCState
@@ -27,6 +32,7 @@ from t41x_torch.dsp.spectrum import ZoomState
 _STATE_TYPES = {T._fields: T for T in (AGCState, SAMState, KimState,
                                        SpectralState, XanrState, CWState,
                                        ZoomState)}
+_TX_TYPES = {T._fields: T for T in (SSBState, TxCWState, CompressorState)}
 
 
 def _map(fn, tree, types=None):
@@ -65,3 +71,15 @@ def state_to_numpy(state):
     """The port's state (any NamedTuple tree of tensors) -> the same
     tree with NumPy leaves, ready for `t41x`'s chain."""
     return _map(_to_numpy, state)
+
+
+def tx_params_from_numpy(params, device="cuda") -> TxParams:
+    """t41x `TxParams` (array leaves) -> the port's, on `device`."""
+    return TxParams(*_map(_to_tensor(device), tuple(params)))
+
+
+def tx_state_from_numpy(state, device="cuda"):
+    """t41x `SSBState` or `CWState` (array leaves; an `SSBState`'s `eq`
+    and `comp` may be ()) -> the port's state of the same field names,
+    on `device`."""
+    return _map(_to_tensor(device), state, _TX_TYPES)

@@ -4,10 +4,10 @@ The same Kenwood command transcript gives the same responses and the
 same radio configs on the TS-890 and TS-2000 handlers (and over TCP);
 the same operator-session transcript gives the same replies, load
 figures masked, with the same display taps and the same `cal rx`
-loopback; `cal tx` and `mode ft8` answer with the slice that brings
-them.  `cli info` prints the same config; `python -m t41x_torch.cli rx
---device cpu` writes audio within 55 dB SNR of `t41x.cli rx`'s on the
-same capture; `ft8` and `psk31` exit non-zero naming the decoder slice.
+loopback, and the same `cal tx` and `mode ft8`.  `cli info` prints the
+same config; `python -m t41x_torch.cli rx --device cpu` writes audio
+within 55 dB SNR of `t41x.cli rx`'s on the same capture; `ft8` (I/Q and
+mono audio captures) and `psk31` print t41x's decodes.
 """
 
 import contextlib
@@ -127,12 +127,12 @@ def test_operator_session_transcripts_equal(tmp_path):
     assert "image rejection" in want
     assert tl.execute("cal rx 1000") == want
     assert tr.radio.config.to_dict() == jr.radio.config.to_dict()
-    # what the port cannot do yet it says, and changes nothing
-    assert "TX slice" in tl.execute("cal tx")
-    assert "image rejection" in jl.execute("cal tx")
-    before = tr.radio.config.to_dict()
-    assert "decoder slice" in tl.execute("mode ft8")
-    assert tr.radio.config.to_dict() == before
+    # the TX slice's cal tx and the decoder slice's mode ft8
+    want = jl.execute("cal tx")
+    assert "image rejection" in want
+    assert tl.execute("cal tx") == want
+    assert tl.execute("mode ft8") == jl.execute("mode ft8") == "mode ft8"
+    assert tr.radio.config.to_dict() == jr.radio.config.to_dict()
 
 
 def test_interactive_session_over_streams():
@@ -205,9 +205,36 @@ def test_cli_operate_runs_a_live_session(tmp_path):
 
 @pytest.mark.parametrize("cmd", ["ft8", "psk31"])
 def test_cli_decoders_exit_nonzero(cmd, tmp_path):
+    """Until the decoder slice these exited non-zero; now they print
+    t41x's decodes: ft8 from a mono 12 kHz audio recording (resampled
+    to 24 kHz, the reference's WAV test mode), psk31 from an I/Q
+    capture (the FT8 I/Q path: tests/test_torch_ft8_radio.py)."""
+    from t41x.decode import psk31
+    from t41x.decode.ft8 import encode
+
     cap = str(tmp_path / "cap.wav")
-    t_wav.write_iq_wav(cap, np.zeros(2048, np.complex64), 192_000)
-    rc, out, err = _run_main(t_cli.main, [cmd, "--in", cap, "--device",
-                                          "cpu"])
-    assert rc != 0 and out == ""
-    assert "decoder slice" in err and "ROADMAP.md Queue 1, item 4" in err
+    if cmd == "ft8":
+        audio = encode.synth_audio(encode.encode("CQ K1ABC FN42"),
+                                   base_freq=1100.0, rate=12000.0, amp=0.3)
+        slot = np.zeros(14 * 12000, np.float32)
+        slot[6000:6000 + len(audio)] = audio
+        slot += 0.05 * np.random.default_rng(3).standard_normal(
+            slot.size).astype(np.float32)
+        t_wav.write_wav(cap, slot, 12000)
+        args = [cmd, "--in", cap]
+    else:
+        iq = psk31.synth_psk31("CQ DE T41", tone_hz=1000.0)
+        t_wav.write_iq_wav(cap, iq[: len(iq) // 2048 * 2048], 192_000)
+        args = [cmd, "--in", cap, "--tone", "1000"]
+    rc, out, err = _run_main(t_cli.main, args + ["--device", "cpu"])
+    want = _run_main(j_cli.main, args)
+    assert rc == want[0] == 0, err
+    assert ("CQ K1ABC FN42" if cmd == "ft8" else "CQ DE T41") in out
+    if cmd == "ft8":
+        # the SNR figure follows the score (tests/test_torch_ft8.py)
+        def strip(o):
+            return [re.sub(r"[+-]\d+\.\d dB", "<snr>", line)
+                    for line in o.splitlines()]
+        assert strip(out) == strip(want[1])
+    else:
+        assert out == want[1]

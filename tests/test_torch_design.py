@@ -312,9 +312,45 @@ def _leaves(tree):
     return [tree]
 
 
-def test_port_never_imports_jax():
-    """Import every t41x_torch module in a fresh interpreter in which
-    `import jax` fails; none may need JAX or the JAX package."""
+def _jax_imports(path) -> list:
+    """Every import of `jax...` or of `t41x` / `t41x.*` in a source
+    file, at any depth (function bodies included), as (line, name)."""
+    import ast
+
+    found = []
+    for node in ast.walk(ast.parse(open(path).read(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names
+                  if n.split(".")[0] in ("jax", "jaxlib", "t41x")]
+    return found
+
+
+def test_port_never_imports_jax(tmp_path):
+    """No t41x_torch source and not chip_smoke.py imports `jax` or
+    `t41x` anywhere, inside functions too (an AST scan); and every
+    t41x_torch module imports in a fresh interpreter in which `import
+    jax` fails, without loading JAX or the JAX package."""
+    import glob
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = sorted(glob.glob(os.path.join(root, "t41x_torch", "**",
+                                          "*.py"), recursive=True))
+    files.append(os.path.join(root, "chip_smoke.py"))
+    assert len(files) >= 72
+    bad = {f: hits for f in files if (hits := _jax_imports(f))}
+    assert not bad, bad
+    # the scan sees imports in function bodies, and not t41x_torch's
+    probe = tmp_path / "probe.py"
+    probe.write_text("import t41x_torch.radio\nfrom t41x_torch import C\n"
+                     "def f():\n    from t41x.decode import psk31\n"
+                     "    import jax.numpy as jnp\n")
+    assert _jax_imports(probe) == [(4, "t41x.decode"), (5, "jax.numpy")]
+
     code = (
         "import pkgutil, importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -326,9 +362,8 @@ def test_port_never_imports_jax():
         "bad = [m for m in sys.modules if m == 't41x' or "
         "m.startswith(('t41x.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 53, mods\n"
+        "assert len(mods) >= 71, mods\n"
         "print(len(mods))\n")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

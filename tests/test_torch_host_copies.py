@@ -2,11 +2,11 @@
 
 The port never imports `t41x`, so it carries copies of `config`,
 `chain.{codec_gain,tune,cal}`, `io.{wav,signals,runtime,control,acquire,
-display}`, `decode.cw_text` and `utils.debugtrace`.  Each copy is held
-two ways: its code equals the original's (imports read as `t41x`,
-docstrings aside; `display` without its two map renderers, which need
-the decoders), and both give exactly the same results on the same
-inputs.
+display}`, `decode.{cw_text,psk31_varicode,locator,bearing,beacon}`,
+`decode.ft8` with its `tables`, `crc`, `message`, `encode` and `slots`,
+and `utils.debugtrace`.  Each copy is held two ways: its code equals the
+original's (imports read as `t41x`, docstrings aside), and both give
+exactly the same results on the same inputs.
 """
 
 import ast
@@ -21,14 +21,24 @@ import pytest
 
 from t41x import config as j_config
 from t41x.chain import cal as j_cal, codec_gain as j_cg, tune as j_tune
-from t41x.decode import cw_text as j_cw
+from t41x.decode import beacon as j_beacon, bearing as j_bearing
+from t41x.decode import cw_text as j_cw, locator as j_loc
+from t41x.decode import psk31_varicode as j_vari
+from t41x.decode.ft8 import crc as j_crc, encode as j_enc
+from t41x.decode.ft8 import message as j_msg, slots as j_slots
+from t41x.decode.ft8 import tables as j_tables
 from t41x.io import acquire as j_acq, control as j_ctl, display as j_disp
 from t41x.io import runtime as j_rt, signals as j_sig, wav as j_wav
 from t41x.utils import debugtrace as j_dbg
 from t41x_torch import config as t_config
 from t41x_torch.chain import cal as t_cal, codec_gain as t_cg
 from t41x_torch.chain import tune as t_tune
-from t41x_torch.decode import cw_text as t_cw
+from t41x_torch.decode import beacon as t_beacon, bearing as t_bearing
+from t41x_torch.decode import cw_text as t_cw, locator as t_loc
+from t41x_torch.decode import psk31_varicode as t_vari
+from t41x_torch.decode.ft8 import crc as t_crc, encode as t_enc
+from t41x_torch.decode.ft8 import message as t_msg, slots as t_slots
+from t41x_torch.decode.ft8 import tables as t_tables
 from t41x_torch.io import acquire as t_acq, control as t_ctl
 from t41x_torch.io import display as t_disp, runtime as t_rt
 from t41x_torch.io import signals as t_sig, wav as t_wav
@@ -36,9 +46,13 @@ from t41x_torch.utils import debugtrace as t_dbg
 
 COPIES = ("config", "chain.codec_gain", "chain.tune", "chain.cal", "io.wav",
           "io.signals", "io.runtime", "decode.cw_text", "io.control",
-          "io.acquire", "utils.debugtrace", "io.display")
-# display's renderers that need the decoders (beacon, locator, bearing)
-NOT_COPIED = {"io.display": {"render_beacon_map", "render_bearing_map"}}
+          "io.acquire", "utils.debugtrace", "io.display", "decode.ft8",
+          "decode.ft8.tables", "decode.ft8.crc", "decode.ft8.message",
+          "decode.ft8.encode", "decode.ft8.slots", "decode.psk31_varicode",
+          "decode.locator", "decode.bearing", "decode.beacon")
+# functions of an original that its copy leaves out (none: every copy
+# is whole)
+NOT_COPIED: dict = {}
 
 
 def _code(mod_name: str, drop=()) -> str:
@@ -312,6 +326,113 @@ def case_display(tmp_path):
                                           float("nan"))],
                 m.SPECTRUM_RES, m.DISPLAY_SCALES]
     return run(t_disp), run(j_disp)
+
+
+def case_ft8_tables(tmp_path):
+    names = ("COSTAS", "GRAY", "CRC_POLY", "CRC_WIDTH", "N", "K", "M", "ND",
+             "NS", "NN", "NRW", "NM", "MN", "H", "GP")
+    return ([getattr(t_tables, n) for n in names],
+            [getattr(j_tables, n) for n in names])
+
+
+FT8_MESSAGES = ("CQ K1ABC FN42", "K1ABC W9XYZ EM77", "W9XYZ K1ABC -11",
+                "K1ABC W9XYZ RRR", "W9XYZ K1ABC R-09", "CQ PJ4/KA1ABC",
+                "<W9XYZ> PJ4/KA1ABC RR73", "PJ4/KA1ABC <W9XYZ> 73",
+                "TNX BOB 73 GL", "123456789ABCDEF012")
+
+
+def case_ft8_message_and_crc(tmp_path):
+    rng = np.random.default_rng(7)
+    bits = rng.integers(0, 2, (8, 77)).astype(np.uint8)
+
+    def run(msg, crc):
+        hashes = msg.CallHashTable()
+        hashes.save("W9XYZ")
+        packed = [msg.pack77(m) for m in FT8_MESSAGES]
+        return [packed, [msg.unpack77(b, hashes) for b in packed],
+                [msg.unpack77(b) for b in packed],
+                [msg.unpack77(b) for b in bits],
+                [msg.ihashcall(c, m) for c in ("W9XYZ", "PJ4/KA1ABC")
+                 for m in (10, 12, 22)],
+                [msg.pack28(c) for c in ("K1ABC", "CQ", "DE", "W9XYZ")],
+                msg.pack_grid("FN42"), msg.unpack_grid(*msg.pack_grid("EM77")),
+                [crc.crc14(np.concatenate([b, np.zeros(5, np.uint8)]))
+                 for b in bits],
+                [crc.add_crc(b) for b in bits],
+                [crc.check_crc(crc.add_crc(b)) for b in bits]]
+    return run(t_msg, t_crc), run(j_msg, j_crc)
+
+
+def case_ft8_encode(tmp_path):
+    def run(m):
+        tones = m.encode("CQ K1ABC FN42")
+        audio = m.synth_audio(tones, base_freq=1100.0, amp=0.3)
+        return [tones, m.encode_bits(t_msg.pack77("K1ABC W9XYZ EM77")),
+                audio, m.apply_sample_rate_offset(audio, 40.0),
+                m.apply_fading(audio, 0.3, seed=4),
+                m.synth_iq("W9XYZ K1ABC -11", base_freq=900.0, nco=200.0,
+                           pad_start_s=0.1, pad_end_s=0.1)]
+    return run(t_enc), run(j_enc)
+
+
+def case_ft8_slots(tmp_path):
+    rng = np.random.default_rng(9)
+    sizes = rng.integers(200, 4000, 500)
+    out = []
+    for mod in (t_slots, j_slots):
+        sm = mod.SlotManager(lambda a: [len(a), float(a[::997].sum())],
+                             clock=lambda: 11.0 + sm.samples_fed / 24000.0)
+        out.append([sm.feed(np.full(n, i % 5, np.float32))
+                    for i, n in enumerate(sizes)]
+                   + [sm.results, sm.slots_decoded, sm.buffered])
+    return out
+
+
+def case_psk31_varicode(tmp_path):
+    return ([t_vari.VARICODE, t_vari.VARICODE_REVERSE],
+            [j_vari.VARICODE, j_vari.VARICODE_REVERSE])
+
+
+def case_locator_bearing_beacon(tmp_path):
+    grids = ("FN42", "EM77aa", "JO65hp", "QF56od", "AA00aa", "RR99xx")
+    calls = ("K1ABC", "G4XYZ", "VK2AB", "JA1XYZ", "PJ4/KA1ABC", "ZZ9ZZZ",
+             "3DA0AB")
+    dbm = np.random.default_rng(3).uniform(-120, -60, (5, 3 * 938))
+
+    def run(loc, bea, bcn):
+        report = bcn.monitor_capture(dbm, start_slot=4)
+        return [[loc.grid_to_latlon(g) for g in grids],
+                [loc.latlon_to_grid(la, lo, p) for la, lo in
+                 ((42.3, -71.1), (-33.9, 151.2), (0.0, 0.0))
+                 for p in (4, 6)],
+                [loc.distance_km(a, b) for a in grids for b in grids],
+                [loc.bearing_deg(a, b) for a in grids[:3] for b in grids],
+                [bea.callsign_prefix(c) for c in calls],
+                [bea.find_country(c) for c in calls],
+                [bea.dx_heading("FN42", c) for c in calls],
+                [bcn.beacon_schedule(i) for i in range(20)],
+                bcn.slot_snr(dbm), report.snr, report.render()]
+    return (run(t_loc, t_bearing, t_beacon),
+            run(j_loc, j_bearing, j_beacon))
+
+
+def case_display_maps(tmp_path):
+    dbm = np.random.default_rng(5).uniform(-120, -60, (5, 2 * 938))
+
+    def run(disp, bcn):
+        report = bcn.monitor_capture(dbm, start_slot=1)
+        return [disp.render_beacon_map(report, "FN42", band_index=b, scale=1)
+                for b in (0, 3)] + [
+            disp.render_beacon_map(bcn.BeaconReport(), None, scale=2),
+            disp.render_bearing_map("FN42", "JA1XYZ", scale=1),
+            disp.render_bearing_map("JO65", "K1ABC", scale=2)]
+    return run(t_disp, t_beacon), run(j_disp, j_beacon)
+
+
+def test_bearing_map_refuses_unknown_calls():
+    for disp in (t_disp, j_disp):
+        with pytest.raises(ValueError, match="no DXCC match"):
+            disp.render_bearing_map("FN42", "ZZ9ZZZ")
 
 
 CASES = {name[5:]: fn for name, fn in globals().items()

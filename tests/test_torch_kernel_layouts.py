@@ -222,7 +222,7 @@ def test_chip_scripts_never_import_jax():
         "import chip_smoke, kernel_ab, kernel_sanitize, kernel_study\n"
         "g = torch.Generator().manual_seed(0)\n"
         "rows = kernel_sanitize.kernel_rows(torch.device('cpu'), 3, g)\n"
-        "assert len(rows) == 17, len(rows)\n"
+        "assert len(rows) == 18, len(rows)\n"  # K1-K8 and C1
         "bad = [m for m in sys.modules if m == 't41x' or "
         "m.startswith(('t41x.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n")

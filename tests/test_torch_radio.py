@@ -7,7 +7,9 @@ equal after every call; the chain specs are equal field for field (with
 per-channel parameters equal in value.  `receive` on a 6-block capture
 at 3 channels holds the North-star bounds (audio >= 55 dB SNR, displayed
 spectrum <= 0.5 dB); `decode_cw` reads the same text.  The decoder and
-transmit entry points raise until their slices come.
+transmit entry points, which raised until their slice came, answer as
+t41x's on the same input (tests/test_torch_{tx,ft8_radio,psk31}.py hold
+them on real signals).
 """
 
 import ast
@@ -151,11 +153,27 @@ def test_decode_cw_reads_the_same_text():
     ("transmit_ssb", np.zeros(2048, np.float32)),
     ("transmit_cw", "CQ"), ("transmit_ft8", "CQ K1ABC FN42")])
 def test_missing_slices_raise(call):
-    t = Radio(device="cpu")
-    before = t.config.to_dict()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1"):
-        getattr(t, call[0])(call[1])
-    assert t.config.to_dict() == before
+    """The entry points the decoder and TX slice brought: t41x's answer
+    on the same input (one block is too short for FT8's candidate pool,
+    and both raise ValueError)."""
+    j, t = JRadio(), Radio(device="cpu")
+    name, arg = call
+    if name == "decode_ft8":
+        for r in (j, t):
+            with pytest.raises(ValueError, match="k"):
+                r.decode_ft8(arg)
+    else:
+        want, got = getattr(j, name)(arg), getattr(t, name)(arg)
+        assert type(got) is type(want)
+        if name == "transmit_ssb":
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_allclose(got, want, atol=1e-6)
+        elif isinstance(want, np.ndarray):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert parity.snr_db(want, got) >= parity.AUDIO_SNR_MIN_DB
+        else:
+            assert got == want
+    assert t.config.to_dict() == j.config.to_dict()
 
 
 def test_cuda_radio_needs_a_card(monkeypatch):

@@ -167,11 +167,55 @@ def test_state_setter_resumes_bit_for_bit():
 
 
 def test_ft8_mode_raises_until_the_decoder_slice():
+    """Since the decoder slice the ft8 mode runs: `prime` builds the
+    chain and the FT8 slot manager, on the radio's device, and leaves
+    the state untouched (the slots are held against t41x's in
+    tests/test_torch_ft8_radio.py)."""
     radio = Radio(device="cpu")
     radio.set_mode("ft8")
-    runner = StreamRunner(radio)
-    with pytest.raises(NotImplementedError, match="decoder slice"):
-        runner.prime()
+    runner = StreamRunner(radio, slot_clock=lambda: 3.0)
+    runner.prime()
+    slots = runner._ft8_slots
+    assert slots is not None and slots.clock() == 3.0
+    assert slots.decode_fn.keywords["device"] == radio.device
+    assert slots.slots_decoded == 0 and runner.blocks_processed == 0
+
+
+@pytest.mark.parametrize("late_ms", [0.0, 25.0])
+def test_ft8_slot_sync_on_a_late_feed(late_ms):
+    """A live feed reads the slot clock some time after its audio was
+    captured.  Feeds one block apart with the clock 14.8 s at the first,
+    and from the 18th feed on (the block that holds the 15 s boundary)
+    each one `late_ms` later, as after a slow step: the runner's slot
+    manager syncs on that block either way, and skips the boundary's
+    offset into it; t41x's wiring (its `SlotManager` reading the clock at
+    each feed) steps past the boundary when the feed is late."""
+    from t41x.decode.ft8.slots import SlotManager as JSlots
+
+    radio = Radio(device="cpu")
+    radio.set_mode("ft8")
+    k = [0]
+
+    def clock():
+        return 14.8 + k[0] * C.BLOCK_SECONDS + (late_ms / 1e3 if k[0] >= 18
+                                                else 0.0)
+
+    runner = StreamRunner(radio, slot_clock=clock)
+    runner.prime()
+    port, ref = runner._ft8_slots, JSlots(decode_fn=list, clock=clock)
+    n = C.BLOCK_SIZE // C.DF
+    synced_at = {}
+    for k[0] in range(24):
+        a = np.arange(k[0] * n, (k[0] + 1) * n, dtype=np.float32)
+        for name, slots in (("port", port), ("ref", ref)):
+            slots.feed(a)
+            if slots.synced and name not in synced_at:
+                synced_at[name] = (k[0], slots.buffer[0][0])
+    # the boundary is 0.2 s (4800 samples) in: block 18, sample 192, to
+    # the one sample of the manager's truncation of a float time
+    assert synced_at["port"][0] == 18
+    assert abs(synced_at["port"][1] - 4800.0) <= 1.0
+    assert ("ref" in synced_at) == (late_ms == 0.0)
 
 
 def test_live_cw_text_matches_t41x():
