@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels ROOT
     python3 chip_smoke.py --host
     python3 chip_smoke.py --txdec
+    python3 chip_smoke.py --mesh
 
 The second form runs phases 1 and 2 alone on the `t41x_torch` package
 in ROOT (another checkout, e.g. a parent commit unpacked with `git
@@ -13,7 +14,8 @@ prints the kernels' JSON line and the card's line; `kernel_ab.py` runs
 it for several checkouts in turns.  The third runs phases 1 and 5 and
 prints the runner's JSON line and the card's line.  The fourth runs
 phases 1 and 6 and prints the kernels' line (C1's row), phase 6's line,
-the card's line and the last line.
+the card's line and the last line.  The fifth runs phases 1 and 7 and
+prints phase 7's line, the card's line and the last line.
 
 Phases, each of which raises on failure (so no result line follows a
 failure):
@@ -103,13 +105,31 @@ failure):
    the slot boundary, decoded inside the slot's 1.5 s margin, median
    load under 100%, no overrun;
    (e) `Radio.decode_psk31` on the card equal to the CPU's; (f) `python
-   -m t41x_torch.cli ft8` and `psk31` in a subprocess against `Radio`.
+   -m t41x_torch.cli ft8` and `psk31` in a subprocess against `Radio`;
+7. drive the mesh layer (`mesh_layer`), every shard on the one card:
+   (a) the polyphase channelizer at K = 16, 64 and 256 over 1024 narrow
+   channels (64, 16 and 4 wideband captures of K x 2048 samples a
+   block, 8 blocks) against the port's own channelizer on the CPU (>=
+   100 dB), a tone's isolation (> 50 dB), channelizer -> the flagship
+   chain with kernels against plain versions (>= 55 dB, <= 0.5 dB; K1,
+   K2, K3 launched), wideband samples/s alone and with the chain, and
+   the channelizer's device time a block by kernel (profiler) against
+   its bound; (b) the chain channel-sharded over 4 shards against the
+   unsharded loop, and an elastic resume 4 -> 2 shards through a
+   checkpoint at block 4 against the uninterrupted stream; (c)
+   `run_time_sharded_full` on a 2 x 4 (ch x t) mesh at 1024 channels x
+   16 blocks, headless usb, against the streamed chain (>= 55 dB; K4,
+   K2, K3 launched), ms for the sharded front end and the tail; (d) an
+   NCCL process group of one rank: `initialize`, `global_mesh`,
+   `shard_local_channels`, `fleet_summary` against torch's reductions.
+   It checks the splits, halos and state composition on the card, not
+   traffic between cards.
 
 It prints the kernels' JSON line (per kernel: its launches and launches
 per block on the main paths, max |err|, device ms a launch, the
 wrapper's, the plain version's and the library call's times, its flops,
-bytes and bound), phase 5's `{"runner": ...}` and phase 6's `{"txdec":
-...}` lines, the card's name and
+bytes and bound), phase 5's `{"runner": ...}`, phase 6's `{"txdec":
+...}` and phase 7's `{"mesh": ...}` lines, the card's name and
 power limit as
 `nvidia-smi` gives them, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1284,6 +1304,351 @@ def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
     return result
 
 
+MESH_K = (16, 64, 256)   # phase 7 (a): channelizer widths, 1024 channels
+MESH_BLOCKS = 8          # (a), (b): blocks a run
+MESH_T_BLOCKS = 16       # (c): blocks of the time-sharded capture
+MESH_SHARDS = 4          # (b): channel shards on the card
+MESH_RESUME = (4, 2)     # (b): the elastic resume's block and shard count
+MESH_CT = (2, 4)         # (c): the ch x t mesh
+MESH_REPS = 5            # (b), (c): timed calls (median), after 3 warm-up
+CHANNELIZER_SNR_MIN_DB = 100.0
+ISOLATION_MIN_DB = 50.0  # tests/test_channelizer.py:53
+
+
+def _chain_parity(name: str, out_k: dict, out_p: dict) -> dict:
+    """The North-star measures of a stream's outputs against a reference
+    stream: audio SNR >= 55 dB, displayed spectra <= 0.5 dB, and whether
+    the two are bit for bit; raises out of bound."""
+    import torch
+
+    from t41x_torch.utils import parity
+
+    rep = {"bit_for_bit": all(torch.equal(out_k[k], out_p[k])
+                              for k in out_p)}
+    for k in out_p:
+        got, ref = out_k[k], out_p[k]
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {k}: {tuple(got.shape)} vs "
+                                 f"{tuple(ref.shape)}, finite "
+                                 f"{bool(torch.isfinite(got).all())}")
+        if k in ("rf_spectrum", "audio_spectrum"):
+            d = rep[k + "_err_db"] = parity.spectrum_err_db(ref, got)
+            ok = d <= parity.SPECTRUM_ERR_MAX_DB
+        elif k in ("audio", "audio_24k"):
+            d = parity.snr_db(ref, got)
+            rep[k + "_snr_db"] = _finite(d)
+            ok = d >= parity.AUDIO_SNR_MIN_DB
+        else:
+            continue
+        if not ok:
+            raise AssertionError(f"{name} {k}: parity {d} out of bound")
+    return rep
+
+
+def _wideband(k: int, n_cap: int, n_blocks: int, g, dev):
+    """(n_blocks, n_cap, K * BLOCK) wideband captures at K x 192 kHz: in
+    every narrow channel a USB tone 1500 + 93.75 (k mod 8) Hz above the
+    channel's -Fs/4 (so the chain's Fs/4 shift puts it in the audio
+    band), random phases, a bin-exact tone of the block (so blocks
+    continue one another), in complex noise 26 dB below a tone."""
+    import torch
+
+    from t41x_torch import constants as C
+    n = k * C.BLOCK_SIZE              # 93.75 Hz bins, 2048 a channel
+    kk = torch.arange(k, device=dev)
+    bins = (kk * C.BLOCK_SIZE - C.BLOCK_SIZE // 4 + 16 + kk % 8) % n
+    ph = 2 * np.pi * torch.rand(n_cap, k, generator=g, device=dev)
+    spec = torch.zeros(n_cap, n, dtype=torch.complex64, device=dev)
+    spec[:, bins] = torch.polar(torch.full_like(ph, 0.3 * n), ph)
+    block = torch.fft.ifft(spec)
+    noise = torch.complex(
+        torch.randn(n_blocks, n_cap, n, generator=g, device=dev),
+        torch.randn(n_blocks, n_cap, n, generator=g, device=dev)) * 0.015
+    return (block + noise).contiguous()
+
+
+def mesh_layer(dev, card: str, n_ch: int, counts, feed, time_ms,
+               kernel_us, rf_blocks, params) -> dict:
+    """Phase 7, the mesh layer on the card: (a) the channelizer at K =
+    16, 64 and 256 over 1024 narrow channels against the port's own on
+    the CPU, a tone's isolation, channelizer -> the flagship chain with
+    kernels against plain versions, rates, and the channelizer's device
+    time by op against its bound; (b) the chain channel-sharded over 4
+    shards against the plain chain and the unsharded loop, timed against
+    that loop, and an elastic 4 -> 2 resume through a checkpoint; (c)
+    the full chain time-sharded on a 2 x 4 (ch x t) mesh against the
+    plain chain and the streamed chain, each pass timed; (d) an NCCL process group
+    of one rank: `initialize`, `global_mesh`, `shard_local_channels`,
+    `fleet_summary` against torch's reductions.  Every shard sits on
+    `dev`: this checks the splits, halos and state composition, not
+    traffic between cards.  `counts` is the (reset, read) pair of the
+    launch counters and `feed` adds a path's launches to the kernels'
+    rows; `rf_blocks(n_ch, n)` gives (n, n_ch, BLOCK) stimulus on the
+    card and `params(n_ch)` spread channel parameters.  Raises on any
+    failure; returns the figures."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    from t41x_torch import constants as C
+    from t41x_torch.chain import ChainSpec, RxChain
+    from t41x_torch.chain.rx import join_blocks
+    from t41x_torch.mesh import distributed as dist
+    from t41x_torch.mesh import sharding, timeshard
+    from t41x_torch.mesh.channelizer import Channelizer
+    from t41x_torch.utils import checkpoint, parity
+
+    t_phase = time.perf_counter()
+    reset_counts, read_counts = counts
+    cuda = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(17)
+    result = {"card": card, "channels": n_ch}
+    rx_kw = SPECS["rx"][0]
+    rx_row = {"K1": "K1 frontend zoom=0 c64"}
+    p = params(n_ch)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def stream(chain, pr, blocks, st=None):
+        st = chain.init_state((n_ch,)) if st is None else st
+        outs = []
+        for blk in blocks:
+            st, out = chain.block(pr, st, blk)
+            outs.append(out)
+        return st, join_blocks(outs, 1)
+
+    # (a) the channelizer at full width
+    chains = {uk: RxChain(ChainSpec(use_kernels=uk, **rx_kw), device=dev)
+              for uk in (True, False)}
+    result["channelizer"] = {}
+    for k in MESH_K:
+        n_cap = n_ch // k
+        cz, cz_cpu = Channelizer(k, device=dev), Channelizer(k, device="cpu")
+        x = _wideband(k, n_cap, MESH_BLOCKS, g, dev)
+        st, st_c = cz.init_state((n_cap,)), cz_cpu.init_state((n_cap,))
+        ch, ch_c = [], []
+        for b in range(MESH_BLOCKS):
+            st, y = cz.block(st, x[b])
+            st_c, y_c = cz_cpu.block(st_c, x[b].cpu())
+            ch.append(y.reshape(n_ch, C.BLOCK_SIZE))
+            ch_c.append(y_c.reshape(n_ch, C.BLOCK_SIZE))
+        ch, ch_c = torch.stack(ch), torch.stack(ch_c)
+        snr = parity.snr_db(ch_c, ch)
+        rep = {"captures": n_cap, "samples_a_block": k * C.BLOCK_SIZE,
+               "snr_vs_cpu_db": _finite(snr)}
+        if snr < CHANNELIZER_SNR_MIN_DB:
+            raise AssertionError(f"channelizer K={k}: {rep}")
+        # a lone tone 10 kHz above channel k/3's centre, over K x 4096
+        # samples from a zero history, as tests/test_channelizer.py
+        # measures it (the start transient included), and past the
+        # branch filters' first P frames
+        k0 = k // 3
+        t = torch.arange(k * 4096, device=dev, dtype=torch.float64) \
+            / cz.fs_in
+        ph = 2 * np.pi * (k0 * cz.fs_channel + 10_000.0) * t
+        _, y = cz.block(cz.init_state(), torch.polar(
+            torch.ones_like(ph), ph).to(torch.complex64))
+        for key, seg in (("isolation_db", y),
+                         ("isolation_steady_db", y[:, cz.P:])):
+            pw = 10 * torch.log10((seg.abs() ** 2).mean(dim=-1) + 1e-30)
+            rep[key] = float(pw[k0] - torch.cat([pw[:k0],
+                                                 pw[k0 + 1:]]).max())
+            if int(pw.argmax()) != k0 or rep[key] <= ISOLATION_MIN_DB:
+                raise AssertionError(
+                    f"channelizer K={k}: tone in channel {k0} came out in "
+                    f"{int(pw.argmax())}, {key} {rep[key]:.2f}")
+        # channelizer -> the flagship chain, kernels against plain
+        reset_counts()
+        _, out_k = stream(chains[True], p, ch.contiguous())
+        sync()
+        c = read_counts()
+        _, out_p = stream(chains[False], p, ch.contiguous())
+        if not all(c[kk] for kk in ("K1", "K2", "K3")):
+            raise AssertionError(f"channelizer K={k} -> chain: launches {c}")
+        feed(c, rx_row, MESH_BLOCKS)
+        rep["chain_launches"] = {kk: v for kk, v in c.items() if v}
+        rep["chain_vs_plain"] = _chain_parity(f"channelizer K={k} -> chain",
+                                              out_k, out_p)
+        if cuda:
+            xb, st0 = x[0], cz.init_state((n_cap,))
+            st_rx = chains[True].init_state((n_ch,))
+            ms = time_ms(lambda: cz.block(st0, xb))
+            ms_chain = time_ms(lambda: chains[True].block(
+                p, st_rx, cz.block(st0, xb)[1].reshape(n_ch, C.BLOCK_SIZE)))
+            per, _ = kernel_us(lambda: cz.block(st0, xb), 20)
+            dev_us = {kk: us * m for kk, (us, m) in per.items()}
+            by_kernel = Counter()   # by name, cut to 100 characters
+            for kk, us in dev_us.items():
+                by_kernel[kk[:100]] += us
+            # a frame's work at the least: the P-tap branch FIR (real
+            # taps on complex samples, 4 P K) and the K-point DFT done as
+            # an FFT (5 K log2 K), not the dense product the port runs
+            n_out = C.BLOCK_SIZE
+            flops = n_cap * n_out * (4 * cz.P * k + 5 * k * int(np.log2(k)))
+            nbytes = n_cap * 8 * (2 * k * C.BLOCK_SIZE
+                                  + 2 * (cz.P * k - 1))
+            b = bound(flops, nbytes)
+            rep.update(
+                ms=ms, ms_with_chain=ms_chain,
+                wideband_samples_per_s=n_cap * k * C.BLOCK_SIZE / ms * 1e3,
+                wideband_samples_per_s_with_chain=(
+                    n_cap * k * C.BLOCK_SIZE / ms_chain * 1e3),
+                device_us=sum(dev_us.values()),
+                device_us_by_kernel=dict(by_kernel.most_common()),
+                **b)
+            log(f"# channelizer K={k}: {n_cap} x {k * C.BLOCK_SIZE} samples "
+                f"a block, {ms:.4f} ms ({rep['wideband_samples_per_s']:.6g} "
+                f"wideband samples/s), with the chain {ms_chain:.4f} ms; "
+                f"device {rep['device_us']:.2f} us a block in "
+                f"{sum(m for _, m in per.values())} kernels, bound "
+                f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}) ({card})")
+            for kk, us in list(rep["device_us_by_kernel"].items())[:8]:
+                log(f"#   {us:10.2f} us  {kk}")
+        brief = {kk: v for kk, v in rep.items()
+                 if kk != "device_us_by_kernel"}
+        log(f"# channelizer K={k}: {json.dumps(brief)} ({card})")
+        result["channelizer"][f"K{k}"] = rep
+
+    # (b) channel sharding over MESH_SHARDS shards on the card
+    chain = chains[True]
+    data = rf_blocks(n_ch, MESH_BLOCKS)                 # (B, C, BLOCK)
+    iq = data.permute(1, 0, 2).reshape(n_ch, -1)
+    mesh = sharding.make_mesh(devices=[dev] * MESH_SHARDS)
+    _, ref = stream(chain, p, data)
+    _, ref_plain = stream(chains[False], p, data)
+    reset_counts()
+    st_sh, out_sh = sharding.channel_sharded_outputs(chain, mesh, p, iq)
+    sync()
+    c = read_counts()
+    feed(c, rx_row, MESH_BLOCKS)
+    # the kernels at a shard's n_ch / MESH_SHARDS channels against the
+    # plain versions, and against the kernels at n_ch
+    shard = {"shards": MESH_SHARDS,
+             "launches": {kk: v for kk, v in c.items() if v},
+             "vs_plain": _chain_parity("channel-sharded vs plain", out_sh,
+                                       ref_plain),
+             "vs_unsharded": _chain_parity("channel-sharded", out_sh, ref)}
+    if cuda:
+        def sharded():
+            sharding.channel_sharded_outputs(chain, mesh, p, iq)
+
+        def unsharded():
+            stream(chain, p, data)
+
+        for key, fn in (("sharded", sharded), ("unsharded", unsharded)):
+            shard[f"ms_{key}"] = time_ms(fn, MESH_REPS)
+            per, _ = kernel_us(fn, 3)
+            shard[f"device_us_a_block_{key}"] = sum(
+                us * m for us, m in per.values()) / MESH_BLOCKS
+            shard[f"kernels_a_block_{key}"] = sum(
+                m for _, m in per.values()) / MESH_BLOCKS
+    # the elastic resume: a checkpoint at block MESH_RESUME[0] on 4
+    # shards, resumed on MESH_RESUME[1]
+    cut = MESH_RESUME[0] * C.BLOCK_SIZE
+    st1, a1 = sharding.channel_sharded_stream(chain, mesh, p, iq[:, :cut])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "elastic.npz")
+        checkpoint.save_state(path, st1, extra={"blocks_done":
+                                                MESH_RESUME[0]})
+        st_r, meta = checkpoint.load_state(path, chain.init_state((n_ch,)))
+    mesh2 = sharding.make_mesh(devices=[dev] * MESH_RESUME[1])
+    _, a2 = sharding.channel_sharded_stream(chain, mesh2, p, iq[:, cut:],
+                                            st_r)
+    joined = torch.cat([a1, a2], dim=-1)
+    whole = out_sh["audio_24k"]
+    d = (joined - whole).abs()
+    snr_plain = parity.snr_db(ref_plain["audio_24k"], joined)
+    shard["elastic"] = {
+        "resumed_at_block": meta["blocks_done"],
+        "shards": list(MESH_RESUME[1:]), "bit_for_bit": bool(torch.equal(
+            joined, whole)),
+        "max_abs_err": float(d.max()),
+        "snr_db": _finite(parity.snr_db(whole, joined)),
+        "vs_plain_snr_db": _finite(snr_plain)}
+    # equal to the uninterrupted stream at tests/test_mesh.py's bounds,
+    # and the resumed shards' kernels within the audio bound of the plain
+    if bool((d > 1e-4 + 1e-3 * whole.abs()).any()) \
+            or snr_plain < parity.AUDIO_SNR_MIN_DB:
+        raise AssertionError(f"elastic resume: {shard['elastic']}")
+    log(f"# channel-sharded: {json.dumps(shard)} ({card})")
+    result["channel_sharded"] = shard
+
+    # (c) the full chain time-sharded on a ch x t mesh, headless usb
+    hl_kw = SPECS["headless"][0]
+    hl = RxChain(ChainSpec(use_kernels=True, **hl_kw), device=dev)
+    hl_plain = RxChain(ChainSpec(use_kernels=False, **hl_kw), device=dev)
+    data = rf_blocks(n_ch, MESH_T_BLOCKS)
+    iq = data.permute(1, 0, 2).reshape(n_ch, -1)
+    _, ref = stream(hl, p, data)
+    _, ref_plain = stream(hl_plain, p, data)
+    ct = sharding.Mesh(np.asarray([dev] * (MESH_CT[0] * MESH_CT[1]),
+                                  dtype=object).reshape(MESH_CT),
+                       ("ch", "t"))
+
+    def front_end():
+        return timeshard.frontend_pass(hl, ct, iq, p, channel_axis="ch")
+
+    timeshard.tail_pass(front_end())
+    sync()                                          # warm-up
+    reset_counts()
+    got = timeshard.tail_pass(front_end())
+    sync()
+    c = read_counts()
+    if not all(c[kk] for kk in ("K4", "K2", "K3")):
+        raise AssertionError(f"time-sharded tail: launches {c}")
+    feed(c, {}, MESH_T_BLOCKS)
+    got = {kk: got[kk] for kk in ref}
+    # the tail's kernels at a slice's n_ch / MESH_CT[0] channels against
+    # the plain versions, and against the streamed chain's kernels
+    tsh = {"mesh": dict(ct.shape), "blocks": MESH_T_BLOCKS,
+           "launches": {kk: v for kk, v in c.items() if v},
+           "vs_plain": _chain_parity("time-sharded vs plain", got,
+                                     ref_plain),
+           "vs_streamed": _chain_parity("time-sharded", got, ref)}
+    if cuda:
+        slices = front_end()
+        tsh["ms_front_end"] = time_ms(front_end, MESH_REPS)
+        tsh["ms_tail"] = time_ms(lambda: timeshard.tail_pass(slices),
+                                 MESH_REPS)
+    log(f"# time-sharded: {json.dumps(tsh)} ({card})")
+    result["time_sharded"] = tsh
+
+    # (d) an NCCL process group of one rank (gloo on a CPU rehearsal)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = tdist.FileStore(os.path.join(tmp, "store"), 1)
+        tdist.init_process_group("nccl" if cuda else "gloo", store=store,
+                                 rank=0, world_size=1)
+        try:
+            dist.initialize()          # one process: returns at once
+            gm = dist.global_mesh(axis="ch", devices=None if cuda
+                                  else [dev])
+            local = dist.shard_local_channels(gm, iq)
+            if (local.offset, local.global_shape) != (0, tuple(iq.shape)):
+                raise AssertionError(f"shard_local_channels: {local[1:]}")
+            vals = -120.0 + 60.0 * torch.rand(n_ch, generator=g, device=dev)
+            s = dist.fleet_summary(vals)
+            mean = float(vals.mean())
+            fleet = {"backend": tdist.get_backend(), "world": 1,
+                     "mesh": {k: v for k, v in gm.shape.items()},
+                     "max_equal": bool(torch.equal(s["max"], vals.max())),
+                     "min_equal": bool(torch.equal(s["min"], vals.min())),
+                     "mean_rel_err": abs(float(s["mean"]) - mean)
+                     / abs(mean)}
+        finally:
+            tdist.destroy_process_group()
+    if not (fleet["max_equal"] and fleet["min_equal"]
+            and fleet["mean_rel_err"] <= 1e-6):
+        raise AssertionError(f"fleet_summary: {fleet}")
+    log(f"# distributed: {json.dumps(fleet)} ({card})")
+    result["distributed"] = fleet
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result
+
+
 def _ft8_cli_line(d) -> str:
     from t41x_torch import cli
 
@@ -1302,10 +1667,11 @@ def main(argv: list[str]) -> int:
     root = None  # --kernels ROOT: phases 1 and 2 on ROOT's t41x_torch
     host_only = argv == ["--host"]  # phases 1 and 5
     txdec_only = argv == ["--txdec"]  # phases 1 and 6
+    mesh_only = argv == ["--mesh"]  # phases 1 and 7
     if len(argv) == 2 and argv[0] == "--kernels":
         root = Path(argv[1]).resolve()
         sys.path.insert(0, str(root))
-    elif argv and not (host_only or txdec_only):
+    elif argv and not (host_only or txdec_only or mesh_only):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1523,6 +1889,16 @@ def main(argv: list[str]) -> int:
     if txdec_only:
         return finish({"txdec": tx_decoders(dev, card, rows, row, time_ms,
                                             count_fns)})
+    if mesh_only:
+        # no kernel rows: the paths' launches are checked and logged
+        print(json.dumps({"mesh": mesh_layer(
+            dev, card, N_CH, count_fns, lambda *a: None, time_ms, kernel_us,
+            rf_blocks, params)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 2. each kernel against its plain version -------------------------
     rx = RxChain(ChainSpec(use_kernels=True, spectrum_zoom=0), device=dev)
@@ -2059,7 +2435,11 @@ def main(argv: list[str]) -> int:
 
     # ---- 6. the transmit chains and the decoders ---------------------------
     txdec = tx_decoders(dev, card, rows, row, time_ms, count_fns)
-    return finish({"runner": runner, "txdec": txdec})
+
+    # ---- 7. the mesh layer ---------------------------------------------------
+    mesh = mesh_layer(dev, card, N_CH, count_fns, feed, time_ms, kernel_us,
+                      rf_blocks, params)
+    return finish({"runner": runner, "txdec": txdec, "mesh": mesh})
 
 
 if __name__ == "__main__":

@@ -17,6 +17,10 @@ to `t41x`'s.
     t41x_torch.chain.RxChain, ChainSpec — the receive chain
     t41x_torch.kernels.*                 — the CUDA kernels and their
                                            plain PyTorch versions
+    t41x_torch.mesh.*                    — the channelizer, channel and
+                                           time sharding, and
+                                           torch.distributed
+    python -m t41x_torch.tools.*         — multihost_bench, livebench
 
 The JAX-free host modules of `t41x` (config, wav, signals, the native
 runtime's bindings, ...) are copies pinned to their originals

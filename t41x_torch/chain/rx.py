@@ -31,7 +31,7 @@ import torch
 
 from t41x_torch import constants as C
 from t41x_torch.demod import am as am_mod, cw as cw_mod, nfm as nfm_mod
-from t41x_torch.demod import sam as sam_mod
+from t41x_torch.demod import sam as sam_mod, ssb as ssb_mod
 from t41x_torch.dsp import agc as agc_mod, eq as eq_mod
 from t41x_torch.dsp import fir, firdesign as fd, iir, nb as nb_mod, nco
 from t41x_torch.dsp import nr as nr_mod, osfilter
@@ -275,7 +275,18 @@ class RxChain:
         reference's ADC q15 format (Process.cpp:102-111).
         Returns (new_state, outputs: dict of tensors).
         """
-        state, audio, outputs = self._block_pre_nr(params, state, iq)
+        x, outputs, fe_upd = self._front(params, state, iq)
+        return self._post_frontend(params, state._replace(**fe_upd), x,
+                                   outputs)
+
+    def _post_frontend(self, params, state, x, outputs):
+        """The audio-rate tail of the chain (band-pass, AGC, demod, EQ,
+        NR, notch, NB, CW, interpolation) over x, the (..., 256) complex
+        24 kHz front-end output; `state`'s front-end fields pass through.
+        `block` runs it after the front end, and the time-sharded chain
+        (`t41x_torch.mesh.timeshard`) over the output of its sharded front
+        end, so that both run one code path."""
+        state, audio, outputs = self._tail_pre_nr(params, state, x, outputs)
         nr_state, audio = self._apply_nr(state.nr, audio)
         return self._tail_post_nr(params, state._replace(nr=nr_state),
                                   audio, outputs)
@@ -284,9 +295,8 @@ class RxChain:
         """One block through the front end and the pre-NR tail; returns
         (state with the pre-NR fields updated, audio, outputs)."""
         x, outputs, fe_upd = self._front(params, state, iq)
-        upd, audio, outputs = self._tail_pre_nr(params, state, x, outputs)
-        upd.update(fe_upd)
-        return state._replace(**upd), audio, outputs
+        return self._tail_pre_nr(params, state._replace(**fe_upd), x,
+                                 outputs)
 
     def _apply_nr(self, nr_state, audio):
         """Per-block noise reduction (Process.cpp:841-858); `block_batch`
@@ -379,7 +389,8 @@ class RxChain:
 
     def _tail_pre_nr(self, params, state, x, outputs):
         """Band-pass, AGC and demod, with the audio-spectrum and S-meter
-        taps.  Returns (state-field updates, audio, outputs)."""
+        taps.  Returns (state with those fields updated, audio,
+        outputs)."""
         spec = self.spec
         upd = {}
         spectrum = None
@@ -408,7 +419,7 @@ class RxChain:
                     sam_mod.sam_demod(self.sam_params, state.sam, y,
                                       use_kernels=spec.use_kernels)
             else:  # SSB family and NFM
-                audio = y.real
+                audio = ssb_mod.ssb_demod(y)
 
         if spectrum is not None and spec.spectrum_taps:
             outputs["audio_spectrum"] = spectrum
@@ -419,7 +430,7 @@ class RxChain:
         if spec.eq_on:  # receive EQ (Process.cpp:828-831)
             upd["eq"], audio = self.eq.apply(state.eq, audio,
                                              params.eq_gains)
-        return upd, audio, outputs
+        return state._replace(**upd), audio, outputs
 
     def _os_filter(self, osf, x):
         """The overlap-save band-pass; returns (osf, y, audio spectrum or
@@ -520,15 +531,20 @@ class RxChain:
         for b in range(n_blocks):
             st, out = self.block(params, st, blocks[b].contiguous())
             outs.append(out)
+        return join_blocks(outs, len(ch))
 
-        def join(vals):
-            # (...ch, N) per block -> (...ch, n_blocks*N) sample streams;
-            # (...ch) per block    -> (...ch, n_blocks) per-block series
-            if vals[0].ndim == len(ch) + 1:
-                return torch.cat(vals, dim=-1)
-            return torch.stack(vals, dim=-1)
 
-        return {k: join([o[k] for o in outs]) for k in outs[0]}
+def join_blocks(outs: list, n_lead: int) -> dict:
+    """Per-block output dicts -> streamed outputs, time axis last: a
+    (...ch, N) output a block becomes a (...ch, n_blocks*N) sample
+    stream, a (...ch) one a (...ch, n_blocks) per-block series; n_lead
+    is the number of channel axes."""
+    def join(vals):
+        if vals[0].ndim == n_lead + 1:
+            return torch.cat(vals, dim=-1)
+        return torch.stack(vals, dim=-1)
+
+    return {k: join([o[k] for o in outs]) for k in outs[0]}
 
 
 def iq_correction(i_part: torch.Tensor, q_part: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Chunk-parallel streaming biquads: design in NumPy, apply in torch.
+"""Streaming biquads: design in NumPy, apply in torch.
 
 The operator constructors (`_normal_form_powers`, `stage_normal_form`, the
 `BiquadChunked` matrices) are a copy of `t41x.dsp.iir`'s, pinned equal
@@ -6,6 +6,12 @@ by `tests/test_torch_design.py`: one source of state coordinates, so a
 carried state moves between `t41x`, the plain torch path and the CUDA
 front end unchanged.  Coefficients use b=[b0,b1,b2], a=[1,a1,a2]:
     y = b0 x + s1;  s1' = b1 x - a1 y + s2;  s2' = b2 x - a2 y
+
+`BiquadChunked` is what the chain runs.  `biquad_apply` is the direct
+per-sample df2T recurrence (the oracle the chunked form is held
+against), `biquad_reference` the same in NumPy float64, and
+`one_pole_dc_block` the AM demod's DC-removal recurrence, each the
+counterpart of `t41x.dsp.iir`'s function of the same name.
 """
 
 from __future__ import annotations
@@ -19,6 +25,67 @@ def biquad_state(channels: tuple[int, ...] = (), stages: int = 1,
     """(..., stages, 2) zero state."""
     return torch.zeros(channels + (stages, 2), dtype=torch.float32,
                        device=device)
+
+
+def biquad_apply(state: torch.Tensor, x: torch.Tensor, b, a):
+    """Apply a cascade of biquad stages to a block, sample by sample.
+
+    state: (..., S, 2) df2T state;  x: (..., N);  b, a: (S, 3) host
+    coefficients (NumPy or lists) with a[:, 0] == 1.
+    Returns (new_state, y).
+    """
+    b = torch.atleast_2d(torch.as_tensor(np.asarray(b), dtype=x.dtype,
+                                         device=x.device))
+    a = torch.atleast_2d(torch.as_tensor(np.asarray(a), dtype=x.dtype,
+                                         device=x.device))
+    s1 = [state[..., s, 0] for s in range(b.shape[0])]
+    s2 = [state[..., s, 1] for s in range(b.shape[0])]
+    ys = []
+    for n in range(x.shape[-1]):
+        v = x[..., n]
+        for s in range(b.shape[0]):
+            y = b[s, 0] * v + s1[s]
+            s1[s] = b[s, 1] * v - a[s, 1] * y + s2[s]
+            s2[s] = b[s, 2] * v - a[s, 2] * y
+            v = y
+        ys.append(v)
+    new_state = torch.stack([torch.stack(s1, dim=-1),
+                             torch.stack(s2, dim=-1)], dim=-1)
+    return new_state, torch.stack(ys, dim=-1)
+
+
+def biquad_reference(x: np.ndarray, b: np.ndarray,
+                     a: np.ndarray) -> np.ndarray:
+    """NumPy oracle: cascade of df2T biquads, zero initial state."""
+    b = np.atleast_2d(b)
+    a = np.atleast_2d(a)
+    y = np.asarray(x, np.float64).copy()
+    for s in range(b.shape[0]):
+        out = np.empty_like(y)
+        s1 = s2 = 0.0
+        for n, v in enumerate(y):
+            o = b[s, 0] * v + s1
+            s1 = b[s, 1] * v - a[s, 1] * o + s2
+            s2 = b[s, 2] * v - a[s, 2] * o
+            out[n] = o
+        y = out
+    return y
+
+
+def one_pole_dc_block(state: torch.Tensor, x: torch.Tensor,
+                      pole: float = 0.99):
+    """The AM demod's one-pole DC-removal recurrence (reference
+    `Process.cpp:700-704`):  w = x + pole*w_old;  y = w - w_old.
+
+    state: (...,) w_old;  x: (..., N).  Returns (new_state, y).
+    """
+    w_old = state
+    ys = []
+    for n in range(x.shape[-1]):
+        w = x[..., n] + pole * w_old
+        ys.append(w - w_old)
+        w_old = w
+    return w_old, torch.stack(ys, dim=-1)
 
 
 def _normal_form_powers(a1: float, a2: float, k: np.ndarray, K: int,

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from t41x.chain import ChainSpec as JSpec, RxChain as JChain
-from t41x.demod import am as jam, nfm as jnfm, sam as jsam
+from t41x.demod import am as jam, nfm as jnfm, sam as jsam, ssb as jssb
 from t41x_torch.demod import am as tam, nfm as tnfm, sam as tsam
+from t41x_torch.demod import ssb as tssb
 from t41x_torch.dsp import iir as tiir
 
 torch.set_num_threads(1)
@@ -48,6 +49,12 @@ def test_alpha_beta_mag_matches():
     np.testing.assert_array_equal(
         tam.alpha_beta_mag(T(i), T(q)).numpy(),
         np.asarray(jam.alpha_beta_mag(jnp.asarray(i), jnp.asarray(q))))
+
+
+def test_ssb_demod_matches():
+    y = _cx(np.random.default_rng(9), 4, N)
+    np.testing.assert_array_equal(tssb.ssb_demod(T(y)).numpy(),
+                                  np.asarray(jssb.ssb_demod(jnp.asarray(y))))
 
 
 @pytest.mark.parametrize("f_hi", [3000.0, 5000.0])

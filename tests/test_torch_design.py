@@ -341,7 +341,10 @@ def test_port_never_imports_jax(tmp_path):
     files = sorted(glob.glob(os.path.join(root, "t41x_torch", "**",
                                           "*.py"), recursive=True))
     files.append(os.path.join(root, "chip_smoke.py"))
-    assert len(files) >= 72
+    assert len(files) >= 81
+    # the mesh layer and the tools are scanned too
+    for sub in ("mesh", "tools"):
+        assert sum(os.sep + sub + os.sep in f for f in files) >= 3, sub
     bad = {f: hits for f in files if (hits := _jax_imports(f))}
     assert not bad, bad
     # the scan sees imports in function bodies, and not t41x_torch's

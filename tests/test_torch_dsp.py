@@ -120,6 +120,59 @@ def test_biquad_chunked_streams_like_t41x():
         _close(ts, js, 2e-3, 5e-4)
 
 
+def test_biquad_apply_matches_t41x_and_scipy():
+    """The per-sample df2T oracle against t41x's and SciPy's lfilter
+    (the bounds of tests/test_kernels.py's biquad tests), streamed over
+    (CH,) channels."""
+    scipy_signal = pytest.importorskip("scipy.signal")
+    rng = np.random.default_rng(6)
+    b, a = jfd.biquad_rbj(3000.0, 1.3, 24000.0, "lowpass")
+    x = rng.standard_normal((CH, 500)).astype(np.float32)
+    st = np.zeros((CH, 1, 2), np.float32)
+    js, jy = jiir.biquad_apply(st, jnp.asarray(x), jnp.asarray([b]),
+                               jnp.asarray([a]))
+    ts, ty = tiir.biquad_apply(T(st), T(x), [b], [a])
+    _close(ty, jy, 1e-5, 1e-6)
+    _close(ts, js, 1e-5, 1e-6)
+    _close(ty, scipy_signal.lfilter(b, a, x, axis=-1), 1e-3, 1e-4)
+
+
+def test_biquad_cascade_streaming_and_oracles():
+    """Two stages streamed in two halves equal one pass, the NumPy oracle
+    (`biquad_reference`, equal to t41x's bit for bit) and the chunked
+    operator the chain runs, from zero states."""
+    rng = np.random.default_rng(7)
+    b1, a1 = jfd.biquad_rbj(2000.0, 0.707, 24000.0, "lowpass")
+    b2, a2 = jfd.biquad_rbj(1000.0, 5.0, 24000.0, "notch")
+    b, a = np.stack([b1, b2]), np.stack([a1, a2])
+    x = rng.standard_normal(256).astype(np.float32)
+    s, y1 = tiir.biquad_apply(tiir.biquad_state(stages=2), T(x[:128]), b, a)
+    _, y2 = tiir.biquad_apply(s, T(x[128:]), b, a)
+    _, yall = tiir.biquad_apply(tiir.biquad_state(stages=2), T(x), b, a)
+    _close(torch.cat([y1, y2]), yall.numpy(), 1e-4, 1e-5)
+    ref = tiir.biquad_reference(x, b, a)
+    np.testing.assert_array_equal(ref, jiir.biquad_reference(x, b, a))
+    _close(yall, ref, 1e-3, 1e-4)
+    _, yc = tiir.BiquadChunked(b, a, 128).apply(
+        tiir.biquad_state(stages=2), T(x))
+    _close(yc, yall.numpy(), 1e-3, 1e-4)
+
+
+def test_one_pole_dc_block_matches_t41x():
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((CH, 2048)) + 5.0).astype(np.float32)
+    w0 = rng.standard_normal(CH).astype(np.float32)
+    jw, jy = jiir.one_pole_dc_block(jnp.asarray(w0), jnp.asarray(x))
+    tw, ty = tiir.one_pole_dc_block(T(w0), T(x))
+    _close(tw, jw, 1e-6, 0.0)
+    # y = w - w_old cancels: its error is that of w (~500 here, where XLA
+    # may fuse pole * w_old + x), a few float32 ulps of |w|
+    _close(ty, jy, 0.0, 4 * np.spacing(np.abs(np.asarray(jw)).max()))
+    # it removes the DC
+    _, y = tiir.one_pole_dc_block(torch.zeros(()), T(x[0]))
+    assert abs(float(y[500:].mean())) < 0.1
+
+
 def test_os_filters_stream_like_t41x():
     rng = np.random.default_rng(5)
     mask = jfd.bandpass_mask(200.0, 3000.0)
