@@ -7,10 +7,12 @@
     python3 chip_smoke.py --txdec
     python3 chip_smoke.py --mesh
 
-The second form runs phases 1 and 2 alone on the `t41x_torch` package
-in ROOT (another checkout, e.g. a parent commit unpacked with `git
-archive`), profiles the rx and headless blocks as phase 4 does, and
-prints the kernels' JSON line and the card's line; `kernel_ab.py` runs
+The second form runs phases 1 and 2 and C1's row of phase 6 (a) (its
+check against the plain loop, its times and its clock64 split) alone on
+the `t41x_torch` package in ROOT (another checkout, e.g. a parent
+commit unpacked with `git archive`), profiles the rx and headless
+blocks as phase 4 does, and prints the kernels' JSON line and the
+card's line; `kernel_ab.py` runs
 it for several checkouts in turns.  The third runs phases 1 and 5 and
 prints the runner's JSON line and the card's line.  The fourth runs
 phases 1 and 6 and prints the kernels' line (C1's row), phase 6's line,
@@ -959,38 +961,20 @@ def _live_ft8_slot(dev, iq, msg: str) -> dict:
             "synced_s": synced, "longest_step_ms": 1e3 * max(steps)}
 
 
-def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
-    """Phase 6, the transmit chains and the decoders on the card: (a) C1
-    against its plain loop; (b) the SSB exciter at 1024 channels, the
-    radio's `transmit_ssb` / `transmit_cw` at one channel against the
-    block budget, and a TX -> RX loopback; (c) FT8 slots decoded by
-    `Radio.decode_ft8` on the card against the port on the CPU, and
-    the decode's time split; (d) a live FT8 slot through the graphed
-    runner at real time; (e) PSK31; (f) the CLI's ft8 and psk31.
-    Raises on any failure; returns the figures."""
-    import os
-    import tempfile
-
+def c1_check(dev, card: str, rows: list, row) -> tuple:
+    """Phase 6 (a): C1, the mic compressor's kernel, against its plain loop
+    on the card, bit for bit, its row in the kernels' line (appended to
+    `rows` by `row`) and its clock64 split.  Raises on a disagreement;
+    returns (its row, the figures)."""
     import torch
 
     from t41x_torch import constants as C
-    from t41x_torch.chain import ChainSpec, RxChain
-    from t41x_torch.chain import compressor as comp_mod, tx
-    from t41x_torch.decode import psk31
-    from t41x_torch.decode.ft8 import decode as ft8, ldpc, sync
-    from t41x_torch.decode.ft8 import waterfall
-    from t41x_torch.io import signals, wav
+    from t41x_torch.chain import compressor as comp_mod
     from t41x_torch.kernels import compressor as kcomp
-    from t41x_torch.radio import Radio
-    from t41x_torch.utils import parity
 
-    t_phase = time.perf_counter()
-    reset_counts, read_counts = counts
-    result = {"card": card}
-
-    # (a) C1 against its plain loop: 1024 channels x 3 blocks from random
-    # carried envelopes, the levels spread over the channels from -60 to
-    # +10 dBFS, so that both the attack and the release branch run
+    # 1024 channels x 3 blocks from random carried envelopes, the levels
+    # spread over the channels from -60 to +10 dBFS, so that both the
+    # attack and the release branch run
     p = comp_mod.compressor_params(rate=C.SAMPLE_RATE)
     g = torch.Generator(device=dev).manual_seed(13)
     n_ch = TX_CHANNELS
@@ -1033,23 +1017,76 @@ def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
         comp_mod.compress(p, st_k, x), plain_reps=REPS_PLAIN)
     c1 = rows[-1]
     c1["tpu_kernel"] = None   # replaces t41x's lax.scan, no TPU kernel
-    # the serial floor, measured: the envelope phase of a block (its 2048
-    # dependent steps, one thread a channel), from C1's clock64 stamps
+    # the serial floor, measured: the envelope row of a block (its 2048
+    # dependent steps, one lane a channel), from C1's clock64 stamps, beside
+    # its other phases (the tree's own C1_PHASES)
     split = log_phases("C1", lambda: kcomp.compress_phases(p, st_k, x)[2],
                        kcomp.C1_PHASES, card, "envelope", C.BLOCK_SIZE,
                        n_ch)
-    result["a"] = {"attack_share": up / n_samples, "max_ulp": ulp,
-                   "max_abs_err": err,
-                   "envelope_us_a_block": {t: split[t]["envelope"]
-                                           for t in split},
-                   "envelope_cycles_a_step": {t: split[t]["cycles_a_step"]
-                                              for t in split},
-                   "block_us": {t: split[t]["block"] for t in split},
-                   "sm_ghz": split["warm"]["sm_ghz"],
-                   "device_us": c1["ms"] * 1e3,
-                   "bound_us": c1["bound_ms"] * 1e3,
-                   "plain_ms": c1["plain_ms"]}
-    log(f"# phase 6 (a) C1: {result['a']} ({card})")
+    # one channel, as `Radio.transmit_ssb` runs it: one block of the kernel
+    st1, x1 = comp_mod.CompressorState(st_k.env_db[:1]), x[:1]
+    got, want = comp_mod.compress(p, st1, x1), comp_mod.compress_plain(
+        p, st1, x1)
+    if not (torch.equal(got[1], want[1])
+            and torch.equal(got[0].env_db, want[0].env_db)):
+        raise AssertionError("phase 6 (a): C1 at one channel vs its plain "
+                             "loop")
+    us1 = device_us(lambda: comp_mod.compress(p, st1, x1),
+                    KERNEL_NAMES["C1"])
+    log(f"# C1 one channel: bit for bit; device {us1:.2f} us a launch "
+        f"(L2 flushed; {card})")
+    split1 = log_phases("C1 one channel",
+                        lambda: kcomp.compress_phases(p, st1, x1)[2],
+                        kcomp.C1_PHASES, card, "envelope", C.BLOCK_SIZE, 1)
+    a = {"attack_share": up / n_samples, "max_ulp": ulp,
+         "max_abs_err": err,
+         "phases_us": {t: {k: split[t][k] for k in kcomp.C1_PHASES}
+                       for t in split},
+         "envelope_cycles_a_step": {t: split[t]["cycles_a_step"]
+                                    for t in split},
+         "block_us": {t: split[t]["block"] for t in split},
+         "sm_ghz": split["warm"]["sm_ghz"],
+         "device_us": c1["ms"] * 1e3,
+         "bound_us": c1["bound_ms"] * 1e3,
+         "plain_ms": c1["plain_ms"],
+         "one_channel": {"device_us": us1,
+                         "envelope_cycles_a_step":
+                             split1["warm"]["cycles_a_step"],
+                         "block_us": split1["warm"]["block"]}}
+    log(f"# phase 6 (a) C1: {a} ({card})")
+    return c1, a
+
+
+def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
+    """Phase 6, the transmit chains and the decoders on the card: (a) C1
+    against its plain loop; (b) the SSB exciter at 1024 channels, the
+    radio's `transmit_ssb` / `transmit_cw` at one channel against the
+    block budget, and a TX -> RX loopback; (c) FT8 slots decoded by
+    `Radio.decode_ft8` on the card against the port on the CPU, and
+    the decode's time split; (d) a live FT8 slot through the graphed
+    runner at real time; (e) PSK31; (f) the CLI's ft8 and psk31.
+    Raises on any failure; returns the figures."""
+    import os
+    import tempfile
+
+    import torch
+
+    from t41x_torch import constants as C
+    from t41x_torch.chain import ChainSpec, RxChain
+    from t41x_torch.chain import tx
+    from t41x_torch.decode import psk31
+    from t41x_torch.decode.ft8 import decode as ft8, ldpc, sync
+    from t41x_torch.decode.ft8 import waterfall
+    from t41x_torch.io import signals, wav
+    from t41x_torch.radio import Radio
+    from t41x_torch.utils import parity
+
+    t_phase = time.perf_counter()
+    reset_counts, read_counts = counts
+    result = {"card": card}
+
+    # (a) C1 against its plain loop
+    c1, result["a"] = c1_check(dev, card, rows, row)
 
     # (b) the SSB exciter at 1024 channels, kernel path against the plain
     # loop on the card; ms a block
@@ -1235,6 +1272,7 @@ def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
         "decodes": runs[0][2]}
     log(f"# phase 6 (c) FT8 decode, crowded slot, ms (median of "
         f"{FT8_REPS}): {result['c']['ms_a_slot']} ({card})")
+    g = torch.Generator(device=dev).manual_seed(13)
     llr = torch.randn(96, 174, generator=g, device=dev) * 4.0
     r1, r2 = ldpc.bp_decode(llr), ldpc.bp_decode(llr)
     if not (torch.equal(r1.bits, r2.bits) and torch.equal(r1.errors,
@@ -1664,7 +1702,7 @@ def main(argv: list[str]) -> int:
     import torch
     import torch.nn.functional as F
 
-    root = None  # --kernels ROOT: phases 1 and 2 on ROOT's t41x_torch
+    root = None  # --kernels ROOT: phases 1, 2 and 6 (a) on ROOT's t41x_torch
     host_only = argv == ["--host"]  # phases 1 and 5
     txdec_only = argv == ["--txdec"]  # phases 1 and 6
     mesh_only = argv == ["--mesh"]  # phases 1 and 7
@@ -2194,7 +2232,9 @@ def main(argv: list[str]) -> int:
             log(f"#   {us:10.1f} us/block  {k[:110]}")
 
     if root is not None:
-        # the flagship and headless blocks' kernels, for kernel_ab.py
+        # C1's row (phase 6 (a)), then the flagship and headless blocks'
+        # kernels, for kernel_ab.py
+        c1_check(dev, card, rows, row)
         blk, pr = rf_blocks(N_CH, 1)[0], params(N_CH)
         for name in ("rx", "headless"):
             profile(name, blk, pr)

@@ -32,10 +32,12 @@ reports an error or does not run; then, with --repeat, the second form.
     python3 kernel_sanitize.py --jitter [--repeat N]
 
 builds a second library from the same sources in which every warp,
-after each `__syncthreads()` and `cluster.sync()`, spins for 0-2047
-cycles chosen by its block, its warp and the call site, and holds every
-row of the first form, at 7, 33 and 1024 channels, against the normal
-library bit for bit.  A phase that reads what another warp writes
+after each `__syncthreads()` and `cluster.sync()` and after each wait
+at or arrival on a named barrier (`named_bar_sync`, `named_bar_arrive`:
+C1's two warp roles meet there), spins for 0-2047 cycles chosen by its
+block, its warp and the call site, and holds every row of the first
+form, at 7, 33 and 1024 channels, against the normal library bit for
+bit.  A phase that reads what another warp writes
 without a barrier between them, or overwrites what a slower warp still
 reads, gives another result once the warps' order is shuffled: a race
 check that needs no sanitizer.
@@ -44,6 +46,7 @@ check that needs no sanitizer.
 from __future__ import annotations
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -55,7 +58,11 @@ CHANNELS = (7, 33)
 ZOOMS = ((1, "c64"), (3, "c64"), (7, "c64"), (1, "q15"))
 TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 JITTER_CHANNELS = (7, 33, 1024)
+# a call of a kernel's named-barrier helpers (C1's warp roles meet at
+# `named_bar_sync(id)` and `named_bar_arrive(id)`), not their definitions
+NAMED_BARRIER = re.compile(r"\b(named_bar_(?:sync|arrive)\([^;(){}]*\));")
 # the spin the jittered build puts after every block or cluster barrier
+# and every named-barrier wait or arrival
 JITTER = """
 static __device__ __forceinline__ void t41x_jitter(unsigned site)
 {
@@ -296,7 +303,8 @@ def repeat_zoom7(times: int) -> None:
 
 def jittered(source: str):
     """A CUDA source with the spin of JITTER after every block or cluster
-    barrier, and the number of barriers it found."""
+    barrier and every named-barrier wait or arrival, and the number of
+    such sites it found."""
     sites = source.count("__syncthreads();") + source.count("cluster.sync();")
     out = source.replace("#include <cuda_runtime.h>",
                          "#include <cuda_runtime.h>\n" + JITTER, 1)
@@ -304,12 +312,13 @@ def jittered(source: str):
                       "__syncthreads(); t41x_jitter(__LINE__);")
     out = out.replace("cluster.sync();",
                       "cluster.sync(); t41x_jitter(__LINE__);")
-    return out, sites
+    out, named = NAMED_BARRIER.subn(r"\1; t41x_jitter(__LINE__);", out)
+    return out, sites + named
 
 
 def jitter_library():
     """The kernels built with a spin after every barrier, and the number
-    of barriers."""
+    of barrier sites."""
     import ctypes
 
     from t41x_torch.kernels import _build
@@ -352,7 +361,7 @@ def run_jitter() -> None:
     finally:
         _build._lib = normal
     print(f"kernel_sanitize: {n} rows equal bit for bit with a 0-2047 "
-          f"cycle spin a warp after each of {sites} barriers "
+          f"cycle spin a warp after each of {sites} barrier sites "
           f"({', '.join(map(str, JITTER_CHANNELS))} channels)", flush=True)
 
 

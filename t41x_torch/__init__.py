@@ -10,11 +10,12 @@ JAX: the design-time code (`constants`, `utils.windows`,
 / `dsp.chunk_ops`, the EQ, CW and zoom designs) is a copy pinned equal
 to `t41x`'s.
 
-    t41x_torch.radio.Radio               — the user-facing radio
+    t41x_torch.Radio, t41x_torch.RadioConfig — the user-facing radio
+                                           (lazy exports, as `t41x`'s)
+    t41x_torch.RxChain, t41x_torch.ChainSpec — the receive chain
     t41x_torch.runner.StreamRunner       — the live loop (one CUDA graph
                                            a chain spec on the card)
     python -m t41x_torch.cli             — the command line
-    t41x_torch.chain.RxChain, ChainSpec — the receive chain
     t41x_torch.kernels.*                 — the CUDA kernels and their
                                            plain PyTorch versions
     t41x_torch.mesh.*                    — the channelizer, channel and
@@ -29,7 +30,8 @@ runtime's bindings, ...) are copies pinned to their originals
 
 import torch
 
-from t41x_torch import constants  # noqa: F401
+from t41x_torch import constants
+from t41x_torch.version import __version__
 
 # Full fp32 on the audio path: a TF32 product keeps ~3 decimal digits,
 # and reduced matmul precision cost the TPU chain 48.9 dB of audio
@@ -37,3 +39,19 @@ from t41x_torch import constants  # noqa: F401
 # stages) default to TF32 on the card, so both switches are pinned.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+__all__ = ["constants", "__version__", "Radio", "RadioConfig",
+           "RxChain", "ChainSpec"]
+
+
+def __getattr__(name):
+    if name == "Radio":
+        from t41x_torch.radio import Radio
+        return Radio
+    if name == "RadioConfig":
+        from t41x_torch.config import RadioConfig
+        return RadioConfig
+    if name in ("RxChain", "ChainSpec"):
+        from t41x_torch import chain
+        return getattr(chain, name)
+    raise AttributeError(name)

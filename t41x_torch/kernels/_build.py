@@ -96,24 +96,39 @@ def library(verbose: bool = False) -> ctypes.CDLL:
 PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def launch(name: str, argtypes: list, *args) -> None:
+def launch(name: str, argtypes: list, device, *args) -> None:
     """Call the C entry point `name`, which launches its kernel on the
-    given stream and returns `cudaGetLastError()`; raise if that is not
-    0 (a refused launch never runs, and a later synchronize would not
-    report it)."""
+    stream it is given and returns `cudaGetLastError()`, on `device`:
+    inside `torch.cuda.device(device)`, with `device`'s current stream
+    appended to `args`.  A tensor in `args` passes as its data pointer
+    and must lie on `device`: CUDA launches only into a stream of the
+    current card, so a kernel for a tensor on `cuda:1` runs there, not
+    on whichever card is current.  Raise if the entry point does not
+    return 0 (a refused launch never runs, and a later synchronize
+    would not report it)."""
+    import torch
+    ptrs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.device != device:
+                raise ValueError(f"{name}: a tensor on {a.device}, the "
+                                 f"launch is on {device}")
+            a = a.data_ptr()
+        ptrs.append(a)
     fn = getattr(library(), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    rc = fn(*args)
+    with torch.cuda.device(device):
+        rc = fn(*ptrs, stream_of(device))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def stream_of(t) -> int:
-    """The current CUDA stream of tensor `t`'s device, as an int."""
+def stream_of(device) -> int:
+    """The current CUDA stream of `device`, as an int."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def cuda_input(name: str, t, dtype, shape: tuple, device):

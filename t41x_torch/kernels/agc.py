@@ -97,14 +97,11 @@ def _launch(p: AGCParams, st: AGCState, x: torch.Tensor, stamps=None):
     outs = [torch.empty(lead, dtype=f32, device=dev) for _ in range(4)] \
         + [torch.empty(lead, dtype=i32, device=dev) for _ in range(3)]
     name, args, extra = (("t41x_agc_block", _ARGS, ()) if stamps is None else
-                         ("t41x_agc_block_phases", _PHASE_ARGS,
-                          (stamps.data_ptr(),)))
+                         ("t41x_agc_block_phases", _PHASE_ARGS, (stamps,)))
     _build.launch(
-        name, args, x.data_ptr(), ring.data_ptr(), abs_ring.data_ptr(),
-        *(t.data_ptr() for t in fs + ints), c, n, b, _fparams(p),
-        p.hang_counter_init, p.hang_enable, y.data_ptr(),
-        new_ring.data_ptr(), new_abs.data_ptr(),
-        *(t.data_ptr() for t in outs), *extra, _build.stream_of(x))
+        name, args, dev, x, ring, abs_ring, *fs, *ints, c, n, b,
+        _fparams(p), p.hang_counter_init, p.hang_enable, y, new_ring,
+        new_abs, *outs, *extra)
     agc_block.launches += 1
     return AGCState(new_ring, new_abs, *outs), y
 
@@ -151,12 +148,10 @@ def _scan_launch(p: AGCParams, carry, rm_t: torch.Tensor,
             for i in range(7)]
     name, args, extra = (("t41x_agc_scan", _SCAN_ARGS, ()) if stamps is None
                          else ("t41x_agc_scan_phases", _SCAN_PHASE_ARGS,
-                               (stamps.data_ptr(),)))
+                               (stamps,)))
     _build.launch(
-        name, args, rm.data_ptr(), ao.data_ptr(),
-        *(t.data_ptr() for t in ins), c, n, _fparams(p), p.hang_counter_init,
-        p.hang_enable, vseq.data_ptr(), *(t.data_ptr() for t in outs),
-        *extra, _build.stream_of(rm))
+        name, args, dev, rm, ao, *ins, c, n, _fparams(p),
+        p.hang_counter_init, p.hang_enable, vseq, *outs, *extra)
     agc_scan.launches += 1
     return tuple(outs), vseq
 

@@ -10,8 +10,12 @@ order.  The dispatch (CPU tensors to the plain version
 `t41x_torch.chain.compressor.compress_plain`, CUDA tensors here) is
 `t41x_torch.chain.compressor.compress`.
 
-`compress_phases` launches the same kernel with `clock64` stamps per
-phase, for measurement (`_build.phase_split` with `C1_PHASES`).
+The kernel runs by warp role: one envelope warp runs the recurrence, one
+lane a channel, while worker warps copy x, compute levels ahead of it
+and turn envelopes into gains behind it, through a ring in shared
+memory.  `compress_phases` launches the same kernel with `clock64`
+stamps per role, for measurement (`_build.phase_split` with
+`C1_PHASES`).
 """
 
 from __future__ import annotations
@@ -29,9 +33,13 @@ _P, _I = _build.PTR, _build.INT
 _FLOATS = ctypes.POINTER(ctypes.c_float)
 _ARGS = [_P, _P, _I, _I, _FLOATS, _P, _P, _P]
 _PHASE_ARGS = _ARGS[:-1] + [_P, _P]   # the stamps buffer before the stream
-# what each row of stamps holds: clock64 cycles per phase, summed over
-# the block's chunks, then the block's total cycles and nanoseconds
-C1_PHASES = ("levels", "envelope", "gain and output")
+# what each row of stamps holds: clock64 cycles of each role, summed
+# over the block's chunks (the worker warps' levels with their copy's
+# wait, the envelope warp's recurrence and its waits on the ring, the
+# workers' gains and output and their waits for envelopes), then the
+# block's total cycles and nanoseconds
+C1_PHASES = ("levels", "envelope", "envelope wait", "gain and output",
+             "worker wait")
 _CH = 8  # channels a thread block (compressor.cu)
 
 
@@ -50,10 +58,9 @@ def launch(p: CompressorParams, st: CompressorState, x: torch.Tensor,
     consts = gain_consts(p)
     name, args, extra = (("t41x_compress", _ARGS, ()) if stamps is None
                          else ("t41x_compress_phases", _PHASE_ARGS,
-                               (stamps.data_ptr(),)))
-    _build.launch(name, args, x.data_ptr(), env.data_ptr(), c, n,
-                  consts.ctypes.data_as(_FLOATS), y.data_ptr(),
-                  env_out.data_ptr(), *extra, _build.stream_of(x))
+                               (stamps,)))
+    _build.launch(name, args, dev, x, env, c, n,
+                  consts.ctypes.data_as(_FLOATS), y, env_out, *extra)
     launch.launches += 1
     return CompressorState(env_out), y
 
@@ -64,7 +71,7 @@ launch.launches = 0  # CUDA kernel launches
 def compress_phases(p: CompressorParams, st: CompressorState,
                     x: torch.Tensor):
     """C1 on CUDA tensors with its phase split: (state, y, stamps),
-    stamps (blocks, 5) as `_build.phase_split` reads them with
+    stamps (blocks, 7) as `_build.phase_split` reads them with
     `C1_PHASES`."""
     stamps = _build.stamp_buffer(math.prod(x.shape[:-1]), _CH,
                                  len(C1_PHASES) + 2, x.device)

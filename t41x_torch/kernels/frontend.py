@@ -215,14 +215,13 @@ class FusedFrontEnd:
             zdec = torch.empty(lead + (n // self.zfactor,), dtype=c64,
                                device=dev)
             nzs = torch.empty(lead + (2 * S,), dtype=f32, device=dev)
-        p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        # tensors pass as their pointers, None as a null pointer
         _build.launch(
-            "t41x_frontend", _ARGS, self.kernel_consts.ctypes.data, p(x_),
-            p(xi_), p(xq_), p(pp), p(dcs), p(h1s), p(h2s), c, n, self.t1,
-            self.t2, C.DF1, C.DF2, self.nco_gain, p(y), p(ndcs), p(nph),
-            p(nd1), p(nd2), p(seg), _ZRES, p(k.get("hz")), p(k.get("Rz")),
-            p(k.get("Ws")), p(zs), S, self.zfactor if self.zoomed else 0,
-            p(zdec), p(nzs), _build.stream_of(ref))
+            "t41x_frontend", _ARGS, dev, self.kernel_consts.ctypes.data, x_,
+            xi_, xq_, pp, dcs, h1s, h2s, c, n, self.t1, self.t2, C.DF1,
+            C.DF2, self.nco_gain, y, ndcs, nph, nd1, nd2, seg, _ZRES,
+            k.get("hz"), k.get("Rz"), k.get("Ws"), zs, S,
+            self.zfactor if self.zoomed else 0, zdec, nzs)
         FusedFrontEnd.launches += 1
         new_state = (ndcs, nph, nd1, nd2)
         if self.zoom == 0:

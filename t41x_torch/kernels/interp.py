@@ -93,14 +93,12 @@ class FusedInterp:
         nint2 = torch.empty(lead + (_SUB2 - 1,), dtype=f32, device=dev)
         name, args, extra = (("t41x_interp", _ARGS, ()) if stamps is None
                              else ("t41x_interp_phases", _PHASE_ARGS,
-                                   (stamps.data_ptr(),)))
+                                   (stamps,)))
         _build.launch(
-            name, args, rows.data_ptr(), rows.stride(0), rows.stride(1),
-            int1.data_ptr(), int2.data_ptr(), vol.data_ptr(),
-            self.hp1.ctypes.data_as(_FLOATS),
+            name, args, dev, rows, rows.stride(0), rows.stride(1), int1,
+            int2, vol, self.hp1.ctypes.data_as(_FLOATS),
             self.hp2.ctypes.data_as(_FLOATS), self.sub1, self.sub2,
-            math.prod(lead), n, y.data_ptr(), nint1.data_ptr(),
-            nint2.data_ptr(), *extra, _build.stream_of(audio))
+            math.prod(lead), n, y, nint1, nint2, *extra)
         FusedInterp.launches += 1
         return nint1, nint2, y
 

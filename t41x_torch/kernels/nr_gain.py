@@ -56,11 +56,9 @@ def _launch(p: KimParams, gst, powers: torch.Tensor):
     X_out, E_out, G_out = (torch.empty_like(t) for t in (X, E, Gts))
     fparams = np.asarray(kim_consts(p), np.float32)
     _build.launch(
-        "t41x_kim_gains", _ARGS, powers.data_ptr(), X.data_ptr(),
-        E.data_ptr(), Gts.data_ptr(), idx.data_ptr(), c, n_hops,
-        fparams.ctypes.data_as(_FLOATS), p.vad_low, p.vad_high,
-        gains.data_ptr(), X_out.data_ptr(), E_out.data_ptr(),
-        G_out.data_ptr(), _build.stream_of(powers))
+        "t41x_kim_gains", _ARGS, dev, powers, X, E, Gts, idx, c, n_hops,
+        fparams.ctypes.data_as(_FLOATS), p.vad_low, p.vad_high, gains,
+        X_out, E_out, G_out)
     kim_gains.launches += 1
     return (X_out, E_out, G_out, idx + n_hops), gains
 

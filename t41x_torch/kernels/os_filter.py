@@ -61,9 +61,8 @@ def _launch(state: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
     Wp = _aligned("Wp", pack_w(W) if Wp is None else Wp, torch.float32,
                   (2, 2 * half, half), dev)
     y = torch.empty_like(x)
-    _build.launch("t41x_os_filter", _ARGS, state.data_ptr(), x.data_ptr(),
-                  Wp.data_ptr(), math.prod(lead), half, y.data_ptr(),
-                  _build.stream_of(x))
+    _build.launch("t41x_os_filter", _ARGS, dev, state, x, Wp,
+                  math.prod(lead), half, y)
     os_filter_matmul_kernel.launches += 1
     return x, y
 

@@ -63,14 +63,11 @@ def _launch(p: SAMParams, st: SAMState, y: torch.Tensor, stamps=None):
     fparams = np.asarray(list(p[:8]) + [_HALF_PI, _PI, _TWO_PI], np.float32)
     coef = np.ascontiguousarray(_ATAN_COEF, np.float32)
     name, args, extra = (("t41x_sam_block", _ARGS, ()) if stamps is None else
-                         ("t41x_sam_block_phases", _PHASE_ARGS,
-                          (stamps.data_ptr(),)))
+                         ("t41x_sam_block_phases", _PHASE_ARGS, (stamps,)))
     _build.launch(
-        name, args, y.data_ptr(), *(s.data_ptr() for s in states),
-        math.prod(lead), n, fparams.ctypes.data_as(_FLOATS),
-        coef.ctypes.data_as(_FLOATS), len(coef), int(bool(p.fade_leveler)),
-        audio.data_ptr(), *(o.data_ptr() for o in outs), *extra,
-        _build.stream_of(y))
+        name, args, dev, y, *states, math.prod(lead), n,
+        fparams.ctypes.data_as(_FLOATS), coef.ctypes.data_as(_FLOATS),
+        len(coef), int(bool(p.fade_leveler)), audio, *outs, *extra)
     sam_block.launches += 1
     return SAMState(*outs), audio
 
@@ -100,6 +97,5 @@ def loop_ops(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
                for nm, t in (("x", x), ("a", a), ("b", b)))
     s, c, q = (torch.empty_like(x) for _ in range(3))
     _build.launch("t41x_sam_loop_ops", [_P] * 3 + [_I] + [_P] * 4,
-                  x.data_ptr(), a.data_ptr(), b.data_ptr(), n, s.data_ptr(),
-                  c.data_ptr(), q.data_ptr(), _build.stream_of(x))
+                  x.device, x, a, b, n, s, c, q)
     return s, c, q

@@ -72,12 +72,11 @@ def _launch(p: XanrParams, st: XanrState, x: torch.Tensor, stamps=None):
          p.ldecr, 1.0 if p.notch else p.post_gain], np.float32)
     name, args, extra = (("t41x_xanr_block", _ARGS, ()) if stamps is None
                          else ("t41x_xanr_block_phases", _PHASE_ARGS,
-                               (stamps.data_ptr(),)))
+                               (stamps,)))
     _build.launch(
-        name, args, x.data_ptr(), dline.data_ptr(), w.data_ptr(),
-        lidx.data_ptr(), ngamma.data_ptr(), math.prod(lead), n, p.taps, hd,
-        fparams.ctypes.data_as(_FLOATS), int(bool(p.notch)), y.data_ptr(),
-        *(t.data_ptr() for t in new), *extra, _build.stream_of(x))
+        name, args, dev, x, dline, w, lidx, ngamma, math.prod(lead), n,
+        p.taps, hd, fparams.ctypes.data_as(_FLOATS), int(bool(p.notch)), y,
+        *new, *extra)
     xanr_block.launches += 1
     return new, y
 

@@ -42,11 +42,15 @@ def initialize(init_method: str | None = None,
     """`torch.distributed.init_process_group`, skipped with one process.
     The backend defaults to NCCL where a card is visible and to gloo on
     the CPU; `init_method` is a `tcp://host:port` or `file://path`
-    rendezvous."""
+    rendezvous.  With NCCL the rank's card, `process_id` modulo the
+    visible cards, becomes the current one first: NCCL binds a
+    communicator to the current card."""
     if num_processes is None or num_processes <= 1:
         return
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
     tdist.init_process_group(backend, init_method=init_method,
                              world_size=num_processes, rank=process_id)
 

@@ -100,6 +100,12 @@ class _Graph:
                                   pin_memory=True)
         self.iq = torch.zeros(shape, dtype=torch.complex64, device=dev)
         self.params = ChannelParams(*(t.clone() for t in params))
+        # the warm-up and the capture run on the chain's card: a graph
+        # captures on the current card's stream, whatever `dev` is
+        with torch.cuda.device(dev):
+            self._capture(fn, state, dev)
+
+    def _capture(self, fn, state, dev) -> None:
         # warm up on a clone of the state, on a side stream: the kernel
         # build and every design cache or upload made on first use
         # happen here, not inside the capture
@@ -139,7 +145,8 @@ class _Graph:
         self.iq.copy_(self.pinned, non_blocking=True)
         for static, p in zip(self.params, params):
             static.copy_(p)
-        self.graph.replay()
+        with torch.cuda.device(self.iq.device):
+            self.graph.replay()
         return self.out
 
 

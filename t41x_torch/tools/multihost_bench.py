@@ -14,7 +14,8 @@ Processes are pinned to disjoint CPU sets (taskset) sized for the
 largest run, so every host has the same compute at N=1 and N=2 and the
 aggregate samples/s compare honestly.  Rendezvous is a `file://` store
 in a fresh temporary directory (no fixed port).  On the card each
-process takes the card of its rank (NCCL); `--device cpu` runs the
+process takes the card of its rank (NCCL; `dist.initialize` makes it
+current); `--device cpu` runs the
 chain's plain versions on the CPU (gloo), with `--devices-per-host`
 shards a process.
 

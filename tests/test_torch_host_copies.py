@@ -4,9 +4,9 @@ The port never imports `t41x`, so it carries copies of `config`,
 `chain.{codec_gain,tune,cal}`, `io.{wav,signals,runtime,control,acquire,
 display}`, `decode.{cw_text,psk31_varicode,locator,bearing,beacon}`,
 `decode.ft8` with its `tables`, `crc`, `message`, `encode` and `slots`,
-and `utils.debugtrace`.  Each copy is held two ways: its code equals the
-original's (imports read as `t41x`, docstrings aside), and both give
-exactly the same results on the same inputs.
+`utils.debugtrace` and `version`.  Each copy is held two ways: its code
+equals the original's (imports read as `t41x`, docstrings aside), and
+both give exactly the same results on the same inputs.
 """
 
 import ast
@@ -49,7 +49,7 @@ COPIES = ("config", "chain.codec_gain", "chain.tune", "chain.cal", "io.wav",
           "io.acquire", "utils.debugtrace", "io.display", "decode.ft8",
           "decode.ft8.tables", "decode.ft8.crc", "decode.ft8.message",
           "decode.ft8.encode", "decode.ft8.slots", "decode.psk31_varicode",
-          "decode.locator", "decode.bearing", "decode.beacon")
+          "decode.locator", "decode.bearing", "decode.beacon", "version")
 # functions of an original that its copy leaves out (none: every copy
 # is whole)
 NOT_COPIED: dict = {}

@@ -195,19 +195,28 @@ def test_k3_bound_arithmetic_matches_the_hand_count():
 
 def test_jittered_sources_spin_after_every_barrier():
     """kernel_sanitize.py's race check builds every source with a spin
-    after each block and cluster barrier."""
+    after each block and cluster barrier and each call of a named-barrier
+    helper (C1's four: its two roles' waits and arrivals)."""
+    import re
+
     import kernel_sanitize
     from t41x_torch.kernels import _build
-    total = 0
+    total = named = 0
     for f in sorted(_build.SRC_DIR.glob("*.cu")):
         src = f.read_text()
         text, sites = kernel_sanitize.jittered(src)
+        calls = len(re.findall(r"named_bar_(?:sync|arrive)\(\w", src)) - len(
+            re.findall(r"void named_bar_(?:sync|arrive)\(", src))
         assert sites == (src.count("__syncthreads();")
-                         + src.count("cluster.sync();")) > 0
+                         + src.count("cluster.sync();") + calls) > 0
         assert text.count("t41x_jitter(__LINE__);") == sites
         assert text.count("static __device__ __forceinline__ void "
                           "t41x_jitter(unsigned site)") == 1
+        # the helpers' definitions are left alone
+        assert "void named_bar_sync(int id) t41x_jitter" not in text
         total += sites
+        named += calls
+    assert named == 4
     assert total >= 30
 
 

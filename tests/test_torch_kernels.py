@@ -278,16 +278,20 @@ def test_interp_launch_passes_rows_as_they_lie(monkeypatch, form):
     vol = T(rng.uniform(0.5, 2.0, lead).astype(np.float32))
     seen = {}
 
-    def view(ptr, count):
+    def view(t, count):
+        # a tensor argument: its data pointer, as the C entry point gets it
+        ptr = t.data_ptr() if isinstance(t, torch.Tensor) else t
         return np.ctypeslib.as_array((ctypes.c_float * count).from_address(
             ptr))
 
-    def fake_launch(name, argtypes, audio, pitch, step, i1, i2, v, hp1,
-                    hp2, sub1, sub2, channels, nn, y, n1, n2, stream):
+    def fake_launch(name, argtypes, device, audio, pitch, step, i1, i2, v,
+                    hp1, hp2, sub1, sub2, channels, nn, y, n1, n2):
         assert name == "t41x_interp" and len(argtypes) == 16
+        assert device == a.device
         assert (sub1, sub2, nn) == (24, 8, n)
         seen.update(pitch=pitch, step=step, channels=channels)
-        rows = np.stack([view(audio + 4 * c * pitch, (n - 1) * step + 1)
+        rows = np.stack([view(audio.data_ptr() + 4 * c * pitch,
+                              (n - 1) * step + 1)
                          [::step] for c in range(channels)])
         ref = tfi.plain(T(rows.copy()), T(view(i1, channels * 23).reshape(
             channels, 23).copy()), T(view(i2, channels * 7).reshape(
@@ -296,7 +300,6 @@ def test_interp_launch_passes_rows_as_they_lie(monkeypatch, form):
             view(ptr, r.numel())[:] = r.numpy().ravel()
 
     monkeypatch.setattr(_build, "launch", fake_launch)
-    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
     n0 = TInterp.launches
     got = tfi._launch(a, h1, h2, vol)
     ref = tfi.plain(a, h1, h2, vol)

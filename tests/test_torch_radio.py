@@ -180,3 +180,22 @@ def test_cuda_radio_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         Radio()
+
+
+def test_package_lazy_exports():
+    """`t41x_torch` exports what `t41x` does (tests/test_radio_api.py
+    `test_package_lazy_exports`): its version and, lazily, the radio,
+    its config and the receive chain."""
+    import t41x
+    import t41x_torch
+    from t41x_torch.chain import ChainSpec, RxChain
+    from t41x_torch.config import RadioConfig
+
+    assert t41x_torch.Radio is Radio
+    assert t41x_torch.RadioConfig is RadioConfig
+    assert t41x_torch.ChainSpec is ChainSpec
+    assert t41x_torch.RxChain is RxChain
+    assert t41x_torch.__version__ == t41x.__version__
+    assert t41x_torch.__all__ == t41x.__all__
+    with pytest.raises(AttributeError):
+        t41x_torch.NoSuchName  # noqa: B018

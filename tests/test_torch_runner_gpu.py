@@ -10,7 +10,9 @@ It holds the graphed runner against a plain loop of `RxChain.block` on
 the card, bit for bit, at 1, 7 and 1024 channels (and with the SAM PLL,
 Kim NR and LMS kernels at 7), `step_batch` against `step`, a spec change
 that captures anew and releases the old graph's memory, a checkpoint
-round trip, and `prime()`, which must leave the state untouched.
+round trip, `prime()`, which must leave the state untouched, and the
+capture's device: the graph and its kernels' launches enter the chain's
+card.
 """
 
 import numpy as np
@@ -103,6 +105,36 @@ def test_graph_replay_equals_eager_loop(cuda, ch, mode, nr):
                                  checkpoint.flatten_with_path(st),
                                  strict=True):
         assert torch.equal(a, b), path
+
+
+def test_graph_captures_on_its_chains_card(cuda, monkeypatch):
+    """The warm-up and the capture run inside `torch.cuda.device` of the
+    chain's card, and so does every kernel launch in them."""
+    from t41x_torch import runner as runner_mod
+    entered, at_capture = [], []
+
+    class recorder(torch.cuda.device):
+        # a subclass, so that torch's own isinstance checks still hold
+        def __init__(self, device):
+            entered.append(device)
+            super().__init__(device)
+
+    capture = runner_mod._Graph._capture
+
+    def recorded_capture(self, fn, state, dev):
+        at_capture.append((entered[-1], torch.cuda.current_device()))
+        return capture(self, fn, state, dev)
+
+    monkeypatch.setattr(torch.cuda, "device", recorder)
+    monkeypatch.setattr(runner_mod._Graph, "_capture", recorded_capture)
+    runner = StreamRunner(_radio(cuda), channels=(7,))
+    assert _feed(runner, _blocks(7, 2)) == 2
+    dev = runner._graph_of["block"].iq.device
+    assert dev.type == "cuda" and dev.index is not None
+    assert at_capture == [(dev, dev.index)]
+    # the kernels' launches in the warm-up and the capture entered it too
+    launches = [d for d in entered if isinstance(d, torch.device)]
+    assert len(launches) > 2 and set(launches) == {dev}
 
 
 def test_step_batch_equals_step(cuda):

@@ -6,10 +6,13 @@ imports nothing of `t41x` or JAX, so the card's machine runs it as
     python -m pytest --noconftest -m gpu tests/test_torch_txdec_gpu.py
 
 C1 (the mic compressor, `t41x_torch/csrc/compressor.cu`) against its
-plain loop on the card, bit for bit, at 1, 7 and 1024 channels and n 1,
-64 and 2048, from random carried envelopes that reach both the attack
-and the release branch, launched through `compress` and with its
-`clock64` stamps; the LDPC decoder on the card twice, bit equal
+plain loop on the card, bit for bit, at 1, 7, 130, 1024 and 4096
+channels (not all a multiple of its 8 a block) and n 1, 63, 64, 127,
+129, 200, 513 and 2048 (under and over its chunk of 128 samples and its
+ring of 4 chunks), from random carried envelopes that reach both the
+attack and the release branch, launched through `compress` and with its
+`clock64` stamps, and at ties and signed zeros (its select is a
+bitwise mask of the comparison); the LDPC decoder on the card twice, bit equal
 (it gathers instead of scattering with atomics), and equal to the CPU's;
 a crowded 15-signal FT8 slot decoded on the card as on the CPU; and the
 SSB exciter's kernel path against its plain path on the card.
@@ -48,8 +51,8 @@ def _attack_count(p, env0, x):
     return n_up
 
 
-@pytest.mark.parametrize("n", [1, 64, 2048])
-@pytest.mark.parametrize("channels", [1, 7, 1024])
+@pytest.mark.parametrize("n", [1, 63, 64, 127, 129, 200, 513, 2048])
+@pytest.mark.parametrize("channels", [1, 7, 130, 1024, 4096])
 def test_c1_equals_its_plain_loop(cuda, channels, n):
     rng = np.random.default_rng(channels * 7 + n)
     p = comp_mod.compressor_params(rate=C.SAMPLE_RATE)
@@ -70,14 +73,45 @@ def test_c1_equals_its_plain_loop(cuda, channels, n):
         assert torch.equal(y_k, y_p) and torch.equal(y_s, y_p)
         assert torch.equal(st_k.env_db, st_p.env_db)
         assert torch.equal(st_s.env_db, st_p.env_db)
-        # the stamped launch: every phase and the block took time
-        assert stamps.shape == (-(-channels // 8), 5)
-        assert bool((stamps > 0).all())
+        # the stamped launch: every role's busy row and the block took
+        # time; the waits on the ring may be 0
+        assert stamps.shape == (-(-channels // 8), len(kcomp.C1_PHASES) + 2)
+        waits = [i for i, nm in enumerate(kcomp.C1_PHASES) if "wait" in nm]
+        busy = [i for i in range(stamps.shape[1]) if i not in waits]
+        assert waits == [2, 4]
+        assert bool((stamps[:, busy] > 0).all())
+        assert bool((stamps[:, waits] >= 0).all())
         st = st_k
     assert kcomp.launch.launches == before + 4
     if channels * n >= 64:
         n_up = _attack_count(p, env0, x)
         assert 0 < n_up < channels * n
+
+
+def test_c1_selects_as_the_comparison_at_ties_and_signed_zeros(cuda):
+    """C1 selects attack or release by a mask of `ldb > env`: at ldb ==
+    env (samples of exactly +-1 give ldb = +0 against a carried +0 or
+    -0), and from carried envelopes of +-0, it still equals the plain
+    loop's `ldb > env` bit for bit."""
+    rng = np.random.default_rng(17)
+    p = comp_mod.compressor_params(rate=C.SAMPLE_RATE)
+    channels, n = 9, 200
+    env0 = rng.uniform(-80.0, 10.0, channels).astype(np.float32)
+    env0[:4] = (-0.0, 0.0, -0.0, 0.0)
+    x = (rng.standard_normal((channels, n)) * 0.5).astype(np.float32)
+    x[:, ::2] = np.where(x[:, ::2] < 0, -1.0, 1.0)
+    x[:2, :8] = 1.0        # ldb = +0 == the carried envelope, 8 steps
+    x[2:4, :8] = 0.0       # the level floor: release from +-0
+    st = comp_mod.CompressorState(torch.from_numpy(env0).to(cuda))
+    xt = torch.from_numpy(x).to(cuda)
+    st_k, y_k = comp_mod.compress(p, st, xt)
+    st_p, y_p = comp_mod.compress_plain(p, st, xt)
+    torch.cuda.synchronize()
+    assert torch.equal(y_k, y_p) and torch.equal(st_k.env_db, st_p.env_db)
+    # the bits too: +0 and -0 compare equal
+    assert torch.equal(y_k.view(torch.int32), y_p.view(torch.int32))
+    assert torch.equal(st_k.env_db.view(torch.int32),
+                       st_p.env_db.view(torch.int32))
 
 
 def test_c1_refuses_what_it_does_not_take(cuda):
