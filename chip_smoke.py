@@ -6,6 +6,7 @@
     python3 chip_smoke.py --host
     python3 chip_smoke.py --txdec
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --tools
 
 The second form runs phases 1 and 2 and C1's row of phase 6 (a) (its
 check against the plain loop, its times and its clock64 split) alone on
@@ -17,7 +18,9 @@ it for several checkouts in turns.  The third runs phases 1 and 5 and
 prints the runner's JSON line and the card's line.  The fourth runs
 phases 1 and 6 and prints the kernels' line (C1's row), phase 6's line,
 the card's line and the last line.  The fifth runs phases 1 and 7 and
-prints phase 7's line, the card's line and the last line.
+prints phase 7's line, the card's line and the last line.  The sixth
+runs phases 1 and 8 and prints phase 8's line, the card's line and the
+last line.
 
 Phases, each of which raises on failure (so no result line follows a
 failure):
@@ -126,12 +129,28 @@ failure):
    `shard_local_channels`, `fleet_summary` against torch's reductions.
    It checks the splits, halos and state composition on the card, not
    traffic between cards.
+8. run the measurement tools in process (`tools_layer`): (a)
+   `t41x_torch.tools.bench` at --min-ms 200 for rx at 1024 and 4096
+   channels, rx_nodisplay, rx with q15, nr, cw, beacon and tx at 1024,
+   and the channelizer at K = 16 over 1024 channels, each its parity on
+   the card (raised inside), its CUDA graph's checksum bit for bit with
+   the eager loop, its 2x-repeats time ratio within 1.8-2.2, its graphed
+   and eager rates and the kernels it launched, and the graphed rx
+   block's device time, kernels and idle share (profiler); (b)
+   `stagebench`'s 32 variants at 1024 channels and --min-ms 50, plus a
+   noise-blanker row and the FFT overlap-save filter with the kernels,
+   none failing, each kernel variant launching its kernels and each
+   plain one none; (c)
+   `ft8_sensitivity` clean and fading at -20 to -10 dB, 10 trials a
+   cell, on the card, every probability within 0.2 of FT8_SENS.json's
+   and the clean 50% threshold within 1 dB of its.
 
 It prints the kernels' JSON line (per kernel: its launches and launches
 per block on the main paths, max |err|, device ms a launch, the
 wrapper's, the plain version's and the library call's times, its flops,
 bytes and bound), phase 5's `{"runner": ...}`, phase 6's `{"txdec":
-...}` and phase 7's `{"mesh": ...}` lines, the card's name and
+...}`, phase 7's `{"mesh": ...}` and phase 8's `{"tools": ...}` lines,
+the card's name and
 power limit as
 `nvidia-smi` gives them, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1687,6 +1706,205 @@ def mesh_layer(dev, card: str, n_ch: int, counts, feed, time_ms,
     return result
 
 
+# phase 8: the measurement tools
+TOOLS_BENCH = (          # (name, bench arguments); --min-ms TOOLS_MIN_MS
+    ("rx_1024", ["--config", "rx", "--channels", "1024"]),
+    ("rx_4096", ["--config", "rx", "--channels", "4096"]),
+    ("rx_nodisplay", ["--config", "rx_nodisplay", "--channels", "1024"]),
+    ("rx_q15", ["--config", "rx", "--q15", "--channels", "1024"]),
+    ("nr", ["--config", "nr", "--channels", "1024"]),
+    ("cw", ["--config", "cw", "--channels", "1024"]),
+    ("beacon", ["--config", "beacon", "--channels", "1024"]),
+    ("tx", ["--config", "tx", "--channels", "1024"]),
+    ("channelizer", ["--config", "channelizer", "--channelizer-k", "16",
+                     "--channels", "1024"]),
+)
+TOOLS_MIN_MS = 200.0
+STAGE_CHANNELS = 1024
+STAGE_BLOCKS = 8
+STAGE_MIN_MS = 50.0
+# beside the reference's variants: the noise blanker's share of a block,
+# and the FFT overlap-save filter against the tap GEMMs with the kernels
+STAGE_EXTRA = {"pallas_nb": dict(nb_on=True, use_kernels=True),
+               "pallas_fft_osfilter": dict(use_matmul_osfilter=False,
+                                           use_kernels=True)}
+FT8_ARGS = ["--conds", "clean,fading", "--snrs=-20,-19,-18,-17,-16,-14,-10",
+            "--trials", "10", "--seed", "0"]
+FT8_PROB_TOL = 0.2       # decode probability against FT8_SENS.json
+FT8_THRESH_TOL_DB = 1.0  # the clean 50% threshold against FT8_SENS.json
+LINEARITY = (1.8, 2.2)   # 2x repeats' time ratio
+
+
+def _kernels_of(kw: dict) -> set:
+    """The kernels a `ChainSpec(use_kernels=True, **kw)` block launches."""
+    need = {"K1"}
+    psk = kw.get("mode") == "psk31"
+    if not psk and kw.get("agc_mode", 2):
+        need.add("K2")
+    if kw.get("interpolate_out", True):
+        need.add("K3")
+    if not psk and not kw.get("spectrum_taps", True):
+        need.add("K4")
+    if kw.get("mode") == "sam":
+        need.add("K6")
+    if kw.get("nr_mode") == 3 or kw.get("notch_on"):
+        need.add("K7")
+    if kw.get("nr_mode") == 1:
+        need.add("K8")
+    return need
+
+
+def _k1_row(kw: dict) -> str:
+    """The kernels' row a spec's K1 launches go to (phase 3's names)."""
+    zoom = kw.get("spectrum_zoom", -1)
+    return (f"K1 frontend zoom={zoom if zoom >= 0 else None} "
+            f"{'q15' if kw.get('q15_input') else 'c64'}")
+
+
+def tools_layer(dev, card: str, counts, feed) -> dict:
+    """Phase 8, the measurement tools on the card, in process: (a)
+    `t41x_torch.tools.bench` for each of TOOLS_BENCH at --min-ms
+    TOOLS_MIN_MS: its parity (raised inside), the graphed checksum equal
+    to the eager one bit for bit, the 2x-repeats time ratio within
+    LINEARITY, the graphed and eager rates, and the kernels each run
+    launched, and on the card the graphed rx block's kernels under the
+    profiler (device µs, kernels and idle share a block); (b)
+    `stagebench`, every variant at STAGE_CHANNELS and
+    --min-ms STAGE_MIN_MS, none failed, each `use_kernels` variant
+    launching its kernels and each plain one none; (c) `ft8_sensitivity`
+    over FT8_ARGS on the card against `FT8_SENS.json` (every probability
+    within FT8_PROB_TOL, the clean 50% threshold within
+    FT8_THRESH_TOL_DB).  Each run's launches are counted from 0 (`counts`,
+    the (reset, read) pair) and added to the kernels' rows by `feed`
+    (blocks: K1's launches, one a block).  The tools print to stderr.
+    Raises on any failure; returns the figures."""
+    import contextlib
+
+    from t41x_torch.chain import ChainSpec
+    from t41x_torch.tools import bench, ft8_sensitivity, stagebench
+
+    t_phase = time.perf_counter()
+    reset_counts, read_counts = counts
+    cuda = dev.type == "cuda"
+    result = {"card": card, "bench": {}, "stagebench": {}}
+    quiet = contextlib.redirect_stdout(sys.stderr)
+
+    # (a) bench
+    for name, argv in TOOLS_BENCH:
+        t0 = time.perf_counter()
+        reset_counts()
+        with quiet:
+            res = bench.main(argv + ["--min-ms", str(TOOLS_MIN_MS),
+                                     "--device", str(dev)])
+        c = read_counts()
+        cfg = res["config"]
+        kw = {**bench.cfg_map()[cfg["bench"]], "q15_input": cfg["q15"],
+              "spectrum_taps": cfg["spectrum_taps"],
+              "interpolate_out": cfg["interpolate_out"]}
+        need = set() if cfg["bench"] == "tx" else _kernels_of(kw)
+        if any(c[k] == 0 for k in need):
+            raise AssertionError(f"phase 8 (a) bench {name}: launches {c}")
+        if need:
+            feed(c, {"K1": _k1_row(kw)}, c["K1"])
+        lin = cfg["linearity_2x_time_ratio"]
+        if cuda and not (cfg["graphed"] and cfg["checksum_graph_equals_eager"]
+                         and LINEARITY[0] <= lin <= LINEARITY[1]):
+            raise AssertionError(f"phase 8 (a) bench {name}: {cfg}")
+        if not (res["value"] > 0 and np.isfinite(cfg["checksum"])):
+            raise AssertionError(f"phase 8 (a) bench {name}: {res}")
+        result["bench"][name] = {
+            "metric": res["metric"], "rate": res["value"],
+            "vs_baseline": res["vs_baseline"],
+            "eager_rate": cfg["eager_rate"],
+            "eager_vs_baseline": round(cfg["eager_rate"] / 192000.0, 2),
+            **{k: cfg.get(k) for k in (
+                "channels", "repeats", "timed_step_ms",
+                "linearity_2x_time_ratio", "dispatch_floor_us", "graphed",
+                "checksum_graph_equals_eager", "parity_db",
+                "power_limit_w")},
+            "launches": {k: v for k, v in c.items() if v},
+            "wall_s": time.perf_counter() - t0}
+        log(f"# phase 8 (a) bench {name}: {result['bench'][name]} ({card})")
+
+    # where a graphed rx block's time goes: the replays' kernels under
+    # the profiler, against the wall time of the same replays
+    if cuda:
+        n_ch, n_blk, n_rep = 1024, 8, 20
+        spec = ChainSpec(spectrum_taps=True, use_matmul_osfilter=True,
+                         use_kernels=True, interpolate_out=True,
+                         **bench.cfg_map()["rx"])
+        d = bench.dispatch(*bench.build("rx", spec, n_ch, n_blk, dev))
+        per, wall = kernel_us(d.replay, n_rep)
+        busy = sum(us * m for us, m in per.values()) / n_blk
+        wall_us = wall / (n_rep * n_blk) * 1e6
+        result["rx_graph_profile"] = {
+            "channels": n_ch, "device_us_per_block": busy,
+            "wall_us_per_block": wall_us,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "kernels_per_block": sum(m for _, m in per.values()) / n_blk,
+            "top_us_per_block": {k: us * m / n_blk for k, (us, m) in sorted(
+                per.items(), key=lambda kv: -kv[1][0] * kv[1][1])[:8]}}
+        log(f"# phase 8 (a) rx graph profile: {result['rx_graph_profile']} "
+            f"({card})")
+
+    # (b) stagebench, one variant at a time so that each one's launches
+    # are its own
+    floor_s = bench.dispatch_floor(dev)
+    iq = bench.make_blocks(ChainSpec(), STAGE_CHANNELS, STAGE_BLOCKS, seed=0,
+                           device=dev)
+    for name, kw in {**stagebench.VARIANTS, **STAGE_EXTRA}.items():
+        t0 = time.perf_counter()
+        reset_counts()
+        r = stagebench.time_variant(kw, STAGE_CHANNELS, STAGE_BLOCKS,
+                                    STAGE_MIN_MS, dev, floor_s, iq)
+        c = read_counts()
+        launched = {k: v for k, v in c.items() if v}
+        if kw["use_kernels"]:
+            if any(c[k] == 0 for k in _kernels_of(kw)):
+                raise AssertionError(f"phase 8 (b) {name}: launches {c}")
+            feed(c, {"K1": _k1_row(kw),
+                     "K7": f"K7 xanr {'notch' if kw.get('notch_on') else 'nr'}"},
+                 c["K1"])
+        elif launched:
+            raise AssertionError(f"phase 8 (b) plain {name}: launches {c}")
+        if cuda and not r["graphed"]:
+            raise AssertionError(f"phase 8 (b) {name}: not graphed")
+        result["stagebench"][name] = {
+            "us_per_block": r["us_per_block"], "rate": r["rate"],
+            "repeats": r["repeats"], "launches": launched,
+            "wall_s": time.perf_counter() - t0}
+        log(f"# phase 8 (b) stagebench {name:26s} {r['us_per_block']:9.1f} "
+            f"us/block/{STAGE_CHANNELS}ch  {launched} ({card})")
+    result["stagebench_floor_us"] = floor_s * 1e6
+
+    # (c) ft8_sensitivity against the reference's record
+    t0 = time.perf_counter()
+    with quiet:
+        rec = ft8_sensitivity.main(FT8_ARGS + ["--device", str(dev)])
+    ref = json.loads((Path(__file__).resolve().parent
+                      / "FT8_SENS.json").read_text())
+    diffs = {}
+    for cond, cells in rec["table"].items():
+        for snr, cell in cells.items():
+            want = ref["table"][cond][str(float(snr))]["prob"]
+            diffs[f"{cond} {snr}"] = round(cell["prob"] - want, 3)
+    worst = max(abs(d) for d in diffs.values())
+    th, th_ref = rec["clean_threshold_db"], ref["clean_threshold_db"]
+    result["ft8"] = {
+        "table": {cond: {str(snr): cell["prob"] for snr, cell in cells.items()}
+                  for cond, cells in rec["table"].items()},
+        "prob_minus_t41x": diffs, "max_abs_prob_diff": worst,
+        "clean_threshold_db": th, "t41x_clean_threshold_db": th_ref,
+        "snr_calibration": rec.get("snr_calibration"),
+        "wall_s": time.perf_counter() - t0}
+    log(f"# phase 8 (c) ft8_sensitivity: {result['ft8']} ({card})")
+    if worst > FT8_PROB_TOL or th is None \
+            or abs(th - th_ref) > FT8_THRESH_TOL_DB:
+        raise AssertionError(f"phase 8 (c) ft8_sensitivity: {result['ft8']}")
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result
+
+
 def _ft8_cli_line(d) -> str:
     from t41x_torch import cli
 
@@ -1706,10 +1924,11 @@ def main(argv: list[str]) -> int:
     host_only = argv == ["--host"]  # phases 1 and 5
     txdec_only = argv == ["--txdec"]  # phases 1 and 6
     mesh_only = argv == ["--mesh"]  # phases 1 and 7
+    tools_only = argv == ["--tools"]  # phases 1 and 8
     if len(argv) == 2 and argv[0] == "--kernels":
         root = Path(argv[1]).resolve()
         sys.path.insert(0, str(root))
-    elif argv and not (host_only or txdec_only or mesh_only):
+    elif argv and not (host_only or txdec_only or mesh_only or tools_only):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1915,6 +2134,10 @@ def main(argv: list[str]) -> int:
             f"dropped at a session's start, by count: "
             f"{dict(sorted(Counter(_spins_dropped).items()))}")
         print(json.dumps({"kernels": rows}))
+        return last_lines(extra)
+
+    def last_lines(extra: dict) -> int:
+        """The phases' lines, the card's line and the last line."""
         for k, v in extra.items():
             print(json.dumps({k: v}))
         print(card)
@@ -1927,16 +2150,15 @@ def main(argv: list[str]) -> int:
     if txdec_only:
         return finish({"txdec": tx_decoders(dev, card, rows, row, time_ms,
                                             count_fns)})
+    # --mesh, --tools: no kernel rows; the paths' launches are checked
+    # and logged
     if mesh_only:
-        # no kernel rows: the paths' launches are checked and logged
-        print(json.dumps({"mesh": mesh_layer(
+        return last_lines({"mesh": mesh_layer(
             dev, card, N_CH, count_fns, lambda *a: None, time_ms, kernel_us,
-            rf_blocks, params)}))
-        print(card)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
+            rf_blocks, params)})
+    if tools_only:
+        return last_lines({"tools": tools_layer(dev, card, count_fns,
+                                                lambda *a: None)})
 
     # ---- 2. each kernel against its plain version -------------------------
     rx = RxChain(ChainSpec(use_kernels=True, spectrum_zoom=0), device=dev)
@@ -2479,7 +2701,11 @@ def main(argv: list[str]) -> int:
     # ---- 7. the mesh layer ---------------------------------------------------
     mesh = mesh_layer(dev, card, N_CH, count_fns, feed, time_ms, kernel_us,
                       rf_blocks, params)
-    return finish({"runner": runner, "txdec": txdec, "mesh": mesh})
+
+    # ---- 8. the measurement tools ----------------------------------------------
+    tools = tools_layer(dev, card, count_fns, feed)
+    return finish({"runner": runner, "txdec": txdec, "mesh": mesh,
+                   "tools": tools})
 
 
 if __name__ == "__main__":

@@ -14,6 +14,11 @@ import torch
 FMDEMOD_QUADRI_K = 0.3404475502381010
 
 
+def nfm_state(channels: tuple[int, ...] = (), device=None) -> torch.Tensor:
+    """(...,) complex64 carried last sample, zero."""
+    return torch.zeros(channels, dtype=torch.complex64, device=device)
+
+
 def nfm_demod(last: torch.Tensor, z: torch.Tensor, limit: bool = True):
     """last: (...,) complex; z: (..., N) complex baseband at audio rate.
     Returns (new_last, audio) with audio real (..., N)."""

@@ -10,6 +10,7 @@ filtered as two real streams sharing the taps.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,3 +82,16 @@ def fir_interpolate(state: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
                    hp.flip(0).T[:, None, :])           # (rows, L, N)
     y = out.transpose(1, 2).reshape(lead + (-1,))      # interleave phases
     return new_state, y
+
+
+def decimate_reference(x: np.ndarray, h: np.ndarray, factor: int) -> np.ndarray:
+    """NumPy oracle for tests: one-shot decimation of a zero-history
+    stream with the same phase convention (`t41x.dsp.fir`'s, copied)."""
+    taps = len(h)
+    xc = np.concatenate([np.zeros(taps - 1, x.dtype), x])
+    n_out = len(x) // factor
+    y = np.empty(n_out, dtype=np.result_type(x, h))
+    for n in range(n_out):
+        seg = xc[n * factor + factor - 1: n * factor + factor - 1 + taps]
+        y[n] = np.dot(seg, h[::-1])
+    return y

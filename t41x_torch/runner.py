@@ -89,6 +89,40 @@ def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
+def capture(fn, state, inputs: list, dev: torch.device):
+    """`fn(state) -> (new_state, outputs dict)` captured as one CUDA graph
+    on `dev`'s current stream (call it inside `torch.cuda.device(dev)`),
+    ending by copying every new state leaf over the leaf of `state` it
+    replaces, so each replay continues from the last.  It first runs
+    once on a clone of the state, on a side stream: the kernel build and
+    every design cache or upload made on first use happen there, not
+    inside the capture.  Returns (graph, outputs), which the next
+    replay overwrites."""
+    side = _warmup_stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn(_clone(state))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        new_state, out = fn(state)
+        live = _leaves(state)
+        ptrs = {t.untyped_storage().data_ptr() for t in live + list(inputs)}
+
+        def detached(t):
+            # a result that shares memory with a captured input is
+            # cloned before any state leaf is overwritten
+            return t.clone() if t.untyped_storage().data_ptr() in ptrs else t
+
+        new = [n if n is o else detached(n)
+               for n, o in zip(_leaves(new_state), live, strict=True)]
+        out = {k: detached(v) for k, v in out.items()}
+        for n, o in zip(new, live):
+            if n is not o:
+                o.copy_(n)
+    return graph, out
+
+
 class _Graph:
     """One chain call captured as a CUDA graph: its static input block(s)
     (with a pinned host buffer to stage them), static parameters and
@@ -106,33 +140,8 @@ class _Graph:
             self._capture(fn, state, dev)
 
     def _capture(self, fn, state, dev) -> None:
-        # warm up on a clone of the state, on a side stream: the kernel
-        # build and every design cache or upload made on first use
-        # happen here, not inside the capture
-        side = _warmup_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            fn(self.params, _clone(state), self.iq)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            new_state, out = fn(self.params, state, self.iq)
-            live = _leaves(state)
-            inputs = {t.untyped_storage().data_ptr()
-                      for t in live + [self.iq]}
-
-            def detached(t):
-                # a result that shares memory with a captured input is
-                # cloned before any state leaf is overwritten
-                return (t.clone() if t.untyped_storage().data_ptr()
-                        in inputs else t)
-
-            new = [n if n is o else detached(n)
-                   for n, o in zip(_leaves(new_state), live, strict=True)]
-            self.out = {k: detached(v) for k, v in out.items()}
-            for n, o in zip(new, live):
-                if n is not o:
-                    o.copy_(n)
+        self.graph, self.out = capture(
+            lambda st: fn(self.params, st, self.iq), state, [self.iq], dev)
 
     def run(self, params: ChannelParams, blocks) -> dict:
         """Replay on `blocks`: one (channels..., BLOCK) array, or a list

@@ -1,2 +1,3 @@
 """Command-line tools over the port: `python -m t41x_torch.tools.NAME`
-(`multihost_bench`, `livebench`)."""
+(`bench`, `stagebench`, `ft8_sensitivity`, `multihost_bench`,
+`livebench`)."""

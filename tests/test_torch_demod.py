@@ -91,6 +91,19 @@ def test_nfm_demod_matches():
         assert float(ta.abs().max()) <= 1.0
 
 
+@pytest.mark.parametrize("channels", [(), (5,), (2, 3)])
+def test_nfm_state_matches(channels):
+    """`nfm_state`, exported by the package as t41x's is, equals t41x's
+    bit for bit: zeros of the channel shape, complex64."""
+    from t41x.demod import nfm_state as j_state
+    from t41x_torch.demod import nfm_state as t_state
+
+    got, ref = t_state(channels), j_state(channels)
+    assert got.dtype == torch.complex64 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert got.numpy().dtype == ref.dtype and got.shape == ref.shape
+
+
 def test_atan2_poly_matches():
     rng = np.random.default_rng(4)
     y = rng.standard_normal(4096).astype(np.float32)

@@ -52,6 +52,31 @@ def test_fir_decimate_streams_like_t41x(factor, taps, fs):
         _close(ts, js, 1e-5, 1e-6)
 
 
+@pytest.mark.parametrize("case", ["real", "complex"])
+def test_decimate_reference_matches_t41x(case):
+    """The port's copy of the NumPy oracle against t41x's, on the inputs
+    of tests/test_kernels.py:19,46; and the port's streaming decimator
+    against it, as that file holds t41x's."""
+    rng = np.random.default_rng(42)
+    if case == "real":
+        h = jfd.fir_kaiser(28, 9000.0, 90.0, "lowpass",
+                           fs=192000.0).astype(np.float32)
+        xs = [rng.standard_normal(256).astype(np.float32)]
+    else:
+        h = np.ones(8, np.float32) / 8
+        x = (rng.standard_normal((3, 64)) + 1j * rng.standard_normal(
+            (3, 64))).astype(np.complex64)
+        xs = list(x)
+    for x in xs:
+        got = tfir.decimate_reference(x, h, 4)
+        ref = jfir.decimate_reference(x, h, 4)
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+        _, y = tfir.fir_decimate(tfir.fir_state(len(h), dtype=T(x).dtype),
+                                 T(x), T(h), 4)
+        _close(y, got, 1e-4, 1e-5)
+
+
 @pytest.mark.parametrize("factor,taps", [(2, 48), (4, 32)])
 def test_fir_interpolate_streams_like_t41x(factor, taps):
     rng = np.random.default_rng(2)
