@@ -32,7 +32,8 @@ failure):
    zoom 2^z variant K1z (zoom 1, 3, 7 complex64, zoom 1 q15), K2 the
    AGC block, K3 the output interpolation, K4 the overlap-save matmul,
    K5 the AGC recurrence of 64-sample blocks, K6 the SAM PLL, K7 the LMS
-   in NR and notch form, K8 the Kim NR gains; and time each: its device
+   in NR and notch form, K8 the Kim NR gains, N1 the noise blanker (no
+   TPU counterpart: t41x runs lax.scans); and time each: its device
    time per launch (torch.profiler, 20 launches after 3 warm-up, L2
    flushed before each, so that its inputs come from device memory), its
    wrapper and its plain version (CUDA events, median of 25 runs after
@@ -44,9 +45,13 @@ failure):
    on a contiguous row and on the real part of a complex64 row, as the
    chain calls it, and is timed on the latter.  K2, K5, K6, K7 and
    K8 must equal their plain versions bit for bit (K2 and K5 from random
-   carried states that reach all five AGC states), and the `clock64`
-   split per phase of K2, K3, K5, K6 and K7 (cold and warm) goes to the
-   log.  Each kernel's bound is the larger of the operations its
+   carried states that reach all five AGC states), N1 its plain
+   version's blank mask but at decisions within 1e-4 of the threshold
+   (counted), the input bit for bit outside its mask and >= 55 dB on the
+   frames whose masks are equal, silent frames passed through (`parity.
+   nb_decisions`), and the `clock64`
+   split per phase of K2, K3, K5, K6, K7 and N1 (cold and warm) goes to
+   the log.  Each kernel's bound is the larger of the operations its
    function needs over the card's fp32 peak (67 TFLOP/s) and its bytes
    (each input read once, each output written once) over its memory
    rate (3.35 TB/s);
@@ -61,8 +66,10 @@ failure):
    blanker; and one short-block AGC path (`agc_apply` over 64-sample
    pieces, K5).  Each path's kernel launches are counted in its run
    (every count is set to 0 just before it), and its outputs are held
-   against the same path with plain versions on the card: audio >= 55 dB
-   SNR and displayed spectrum <= 0.5 dB, or, for the adaptive stages
+   against the same path with plain versions on the card (the noise
+   blanker's decisions counted, and its eager block's wall, with N1 and
+   with the plain loop, logged): audio >= 55 dB SNR and displayed
+   spectrum <= 0.5 dB, or, for the adaptive stages
    (SAM PLL, LMS, notch), the audio power spectrum of the last 2 blocks
    within 3 dB and SAM's carrier within 0.1 Hz; CW keying equal; plus
    finite values of the expected shapes;
@@ -191,6 +198,10 @@ K8 = ("t41x_torch/csrc/nr_gain.cu", "t41x/kernels/nr_gain_pallas.py:35")
 # lax.scan (the line given)
 C1 = ("t41x_torch/csrc/compressor.cu", "t41x/chain/compressor.py:64")
 C1_MAX_ULP = 0      # C1 against its plain loop on the card: bit for bit
+# N1 replaces no TPU kernel either: t41x runs the noise blanker's
+# Levinson recursion, predictors and cross-fade distances as lax.scans
+# (t41x/dsp/nb.py:63, :126, :138; the predictors' given)
+N1 = ("t41x_torch/csrc/nb.cu", "t41x/dsp/nb.py:126")
 
 # the main paths: ChainSpec keywords, parity measure, and the kernels that
 # must launch
@@ -235,7 +246,8 @@ SPECS = {
     "cw": (dict(mode="cw", cw_filter_index=2), "waveform",
            ("K1", "K2", "K3")),
     "eq": (dict(mode="usb", eq_on=True), "waveform", ("K1", "K2", "K3")),
-    "nb": (dict(mode="usb", nb_on=True), "waveform", ("K1", "K2", "K3")),
+    "nb": (dict(mode="usb", nb_on=True), "waveform",
+           ("K1", "K2", "K3", "N1")),
 }
 # the slice-1 and -2 waveform specs, which run N_BLOCKS_SHORT blocks
 SHORT_SPECS = ("rx", "rx_q15", "headless", "headless_q15", "am", "nfm",
@@ -254,7 +266,7 @@ KERNEL_NAMES = {"K1": "frontend_kernel", "K2": "agc_kernel",
                 "K3": "interp_kernel", "K4": "os_filter_kernel",
                 "K5": "agc_scan_kernel", "K6": "sam_kernel",
                 "K7": "xanr_kernel", "K8": "kim_gain_kernel",
-                "C1": "compress_kernel"}
+                "C1": "compress_kernel", "N1": "nb_kernel"}
 
 
 def k1_flops(n_ch: int, zoom=None, n: int = 2048, t1: int = 28,
@@ -314,7 +326,23 @@ OPS_PER_ELEMENT = {
     "K7": 4 * 64 + 16,  # per sample: 64-tap prediction and update
     "K8": 40,      # per bin and hop: minimum statistics, Wiener rule
     "C1": 60,      # per sample: log10f, the envelope step, powf
+    # per sample: the 11 lags (22), the two 11-tap FIRs (44), the
+    # variance (4) and the hit test (2); n1_flops adds the rest
+    "N1": 72,
 }
+N1_OPS_PER_FRAME = 151   # Levinson-Durbin (250) and the threshold (22),
+#                          less the lags' 121 products and sums past the
+#                          frame's end
+N1_OPS_PER_BLANKED = 45  # two 10-tap predictions (38) and the cross-fade
+
+
+def n1_flops(x, mask) -> int:
+    """fp32 operations of the noise blanker on frames x (..., n) whose
+    blank mask is `mask`: the predictions and the cross-fade run only
+    on the blanked samples this input has."""
+    frames = x.numel() // x.shape[-1]
+    return (OPS_PER_ELEMENT["N1"] * x.numel() + N1_OPS_PER_FRAME * frames
+            + N1_OPS_PER_BLANKED * int(mask.sum()))
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -1751,6 +1779,8 @@ def _kernels_of(kw: dict) -> set:
         need.add("K7")
     if kw.get("nr_mode") == 1:
         need.add("K8")
+    if kw.get("nb_on"):
+        need.add("N1")
     return need
 
 
@@ -1950,6 +1980,10 @@ def main(argv: list[str]) -> int:
         from t41x_torch.kernels import sam as ksam
         from t41x_torch.kernels import xanr as kxanr
         from t41x_torch.utils import parity
+        if root is None or (root / "t41x_torch/kernels/nb.py").exists():
+            from t41x_torch.kernels import nb as knb
+        else:   # --kernels on a tree from before N1 (kernel_ab.py)
+            knb = None
     except ImportError as e:
         print(f"chip_smoke: t41x_torch is not importable ({e}); run it "
               "from the repository root", file=sys.stderr)
@@ -1980,6 +2014,8 @@ def main(argv: list[str]) -> int:
                 "K7": (kxanr.xanr_block, "launches"),
                 "K8": (knr.kim_gains, "launches"),
                 "C1": (kcomp.launch, "launches")}
+    if knb is not None:
+        counters["N1"] = (knb.launch, "launches")
 
     def reset_counts():
         for obj, attr in counters.values():
@@ -2098,7 +2134,8 @@ def main(argv: list[str]) -> int:
         """One kernel's line: its device time (profiler), the wrapper's
         and the plain version's times (CUDA events), its bound from
         `flops` and the bytes of `ins` and `outs`, and the library call's
-        device time where one PyTorch call computes the same."""
+        device time where one PyTorch call computes the same.  `tol` is
+        (rtol, atol), or the words of another criterion."""
         dev_us = device_us(fn_k, KERNEL_NAMES[name[:2]])
         wrapper_ms = time_ms(fn_k)
         plain_ms = time_ms(fn_p, plain_reps)
@@ -2110,8 +2147,10 @@ def main(argv: list[str]) -> int:
                          max_abs_err=err, ms=dev_us / 1e3,
                          wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                          plain_device_ms=plain_dev, library_ms=lib_ms, **b))
-        log(f"# {name}: max |err| {err:.3g} within rtol {tol[0]}, atol "
-            f"{tol[1]}; device {dev_us:.2f} us a launch, bound "
+        within = (tol if isinstance(tol, str)
+                  else f"rtol {tol[0]}, atol {tol[1]}")
+        log(f"# {name}: max |err| {err:.3g} within {within}; device "
+            f"{dev_us:.2f} us a launch, bound "
             f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}; {b['flops']:.4g} "
             f"flop, {b['bytes']:.4g} B); wrapper {wrapper_ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms"
@@ -2429,6 +2468,48 @@ def main(argv: list[str]) -> int:
         OPS_PER_ELEMENT["K8"] * pw.numel(), (pw, g_k),
         knr.kim_gains(kp, g_k, pw))
 
+    # N1: audio frames at the chain's shape (1024 x 256), a 600 Hz tone
+    # in light noise with 1-3 impulses a frame; impulses at the hit
+    # guard's edges (13 and n - 15) in every 64th frame and the next;
+    # every 16th frame, from the 8th, silent.  Its decisions against the
+    # plain version's (`parity.nb_decisions`), the silent frames passed
+    # through
+    if knb is not None:
+        n = C.AUDIO_BLOCK
+        t = torch.arange(n, device=dev) / C.AUDIO_RATE
+        xa = 0.3 * torch.sin(2 * np.pi * 600.0 * t + 6.0 * torch.rand(
+            N_CH, 1, generator=gen, device=dev)) + 0.02 * torch.randn(
+            N_CH, n, generator=gen, device=dev)
+        pos = torch.randint(14, n - 14, (N_CH, 3), generator=gen, device=dev)
+        amp = 1.5 * torch.sign(torch.randn(N_CH, 3, generator=gen,
+                                           device=dev))
+        amp[:, 1:] *= torch.rand(N_CH, 2, generator=gen, device=dev) < 0.5
+        xa.scatter_add_(1, pos, amp)
+        xa[0::64, 13] += 2.0
+        xa[1::64, n - 15] += 2.0
+        xa[8::16] = 0.0
+        y_k, m_k = knb.launch_with_mask(xa)
+        y_p = nb_mod.noise_blanker_plain(xa)
+        m_p, margin = nb_mod.decision_margin(xa)
+        torch.cuda.synchronize()
+        rep = parity.nb_decisions(xa, y_k, m_k, y_p, m_p, margin)
+        log(f"# N1 decisions against the plain version: {rep} ({N_CH} "
+            f"frames of {n}, {card})")
+        if not (rep["ok"] and rep["blanked_samples"] > 0
+                and torch.equal(y_k[8::16], xa[8::16])):
+            raise AssertionError(f"N1 vs its plain version: {rep}")
+        same = ~(m_k ^ m_p).any(dim=-1)
+        row("N1 nb", N1, lambda: nb_mod.noise_blanker(xa),
+            lambda: nb_mod.noise_blanker_plain(xa),
+            float((y_k[same] - y_p[same]).abs().max()),
+            f"{parity.AUDIO_SNR_MIN_DB} dB ({rep['snr_db']:.1f}), "
+            f"{rep['mask_samples_differ']} mask samples differing",
+            n1_flops(xa, m_p), (xa,), y_k, plain_reps=REPS_PLAIN)
+        # where a frame's time goes, and the predictors' cycles a blanked
+        # sample (frames a block wait at its barriers for the slowest)
+        log_phases("N1", lambda: knb.nb_phases(xa)[1], knb.N1_PHASES, card,
+                   "predict", float(m_p.sum()) / N_CH)
+
     def profile(name, blk, pr):
         """Where the time goes on spec `name`: device time per block of
         each CUDA kernel, by name, and the number of kernels a block,
@@ -2623,6 +2704,18 @@ def main(argv: list[str]) -> int:
             report["nb_regions_differ"] = regions(m_k ^ m_p)
             if regions(m_p) == 0:
                 raise AssertionError(f"{name}: nothing was blanked")
+            # the eager block's wall, with N1 and with the plain loop
+            for use_kernels in (True, False):
+                chain = RxChain(ChainSpec(use_kernels=use_kernels, **kw),
+                                device=dev)
+                st = chain.block(pr, chain.init_state((N_CH,)), src[0])[0]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in range(B):
+                    st = chain.block(pr, st, src[b])[0]
+                torch.cuda.synchronize()
+                report[f"nb_eager_block_ms_{'n1' if use_kernels else 'plain'}"
+                       ] = (time.perf_counter() - t0) / B * 1e3
         if measure == "waveform":
             state_close(f"{name} chain", st_k, st_p)
         log(f"# main path {name}: {N_CH} ch x {B} blocks, launches "

@@ -11,11 +11,13 @@ of its neighbours shows as a difference between the two runs of one
 tree), it runs `chip_smoke.py --kernels ROOT` in a process of its own:
 that builds the tree's kernels, holds each against its plain version,
 and times it at 1024 channels, C1 (the transmit chain's compressor,
-phase 6 (a)) included.  It prints each run's log (its build, each
+phase 6 (a)) and N1 (the noise blanker, where the tree has it)
+included.  It prints each run's log (its build, each
 kernel's check and times, the phase split of K2, K5, K6, K7 and C1
 where the tree has it) and JSON line, a table
 of each row's device µs a launch (and, where the row has them, the
-plain version's and the library call's) across the runs, the number of
+plain version's and the library call's) across the runs ("-" for a
+tree without the row), the number of
 device kernels a block on the rx and headless specs in each run, and
 the card's name and power limit as `nvidia-smi` gives them.
 """
@@ -53,11 +55,12 @@ def main() -> int:
             if m:
                 kernels.setdefault(m.group(1), []).append(m.group(2))
     print(f"# device us a launch, {' / '.join(order)} ({card})")
-    for name in runs[0]:
+    names = list(dict.fromkeys(name for r in runs for name in r))
+    for name in names:
         for key, label in (("ms", ""), ("plain_device_ms", " plain"),
                            ("library_ms", " library")):
             vals = [r.get(name, {}).get(key) for r in runs]
-            if vals[0] is not None:
+            if any(v is not None for v in vals):
                 print(f"#   {name + label:32s} " + " / ".join(
                     "-" if v is None else f"{v * 1e3:.2f}" for v in vals))
     for name, counts in kernels.items():

@@ -11,7 +11,8 @@ The first form runs each kernel row of `chip_smoke.py` phase 2 once at
 small odd channel counts (7 and 33; K1 zoom None/0 in complex64 and
 q15, K1z at zoom 1, 3 and 7 and zoom 1 in q15, K2, K3 on a contiguous
 row and on the real part of a complex64 row, K4, K5, K6, K7 in NR and
-notch form, K8, and C1, the transmit chain's compressor of phase 6),
+notch form, K8, C1, the transmit chain's compressor of phase 6, and N1,
+the noise blanker),
 each twice on the same inputs, and fails unless the two
 runs agree bit for bit: a race that changes what a kernel computes
 shows there.  No profiler and no plain versions, so that the form is
@@ -35,12 +36,15 @@ builds a second library from the same sources in which every warp,
 after each `__syncthreads()` and `cluster.sync()` and after each wait
 at or arrival on a named barrier (`named_bar_sync`, `named_bar_arrive`:
 C1's two warp roles meet there), spins for 0-2047 cycles chosen by its
-block, its warp and the call site, and holds every row of the first
-form, at 7, 33 and 1024 channels, against the normal library bit for
-bit.  A phase that reads what another warp writes
-without a barrier between them, or overwrites what a slower warp still
-reads, gives another result once the warps' order is shuffled: a race
-check that needs no sanitizer.
+block, its warp and the call site, and every lane, after each
+`warp_sync()` (N1's lanes exchange a frame's arrays through shared
+memory there), for 0-2047 cycles chosen by its block, warp, lane and
+the call site; and holds every row of the first form, at 7, 33 and
+1024 channels, against the normal library bit for bit.  A phase that
+reads what another warp (or lane) writes without a barrier between
+them, or overwrites what a slower one still reads, gives another
+result once their order is shuffled: a race check that needs no
+sanitizer.
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ JITTER_CHANNELS = (7, 33, 1024)
 # a call of a kernel's named-barrier helpers (C1's warp roles meet at
 # `named_bar_sync(id)` and `named_bar_arrive(id)`), not their definitions
 NAMED_BARRIER = re.compile(r"\b(named_bar_(?:sync|arrive)\([^;(){}]*\));")
+# a call of N1's warp barrier helper (`warp_sync()`), not its definition
+WARP_SYNC = re.compile(r"\bwarp_sync\(\);")
 # the spin the jittered build puts after every block or cluster barrier
 # and every named-barrier wait or arrival
 JITTER = """
@@ -74,6 +80,11 @@ static __device__ __forceinline__ void t41x_jitter(unsigned site)
     const long long t0 = clock64();
     while (clock64() - t0 < (long long)(h & 2047u)) {
     }
+}
+
+static __device__ __forceinline__ void t41x_jitter_lane(unsigned site)
+{
+    t41x_jitter(site * 0x27D4EB2Fu ^ (threadIdx.x & 31u));
 }
 """
 
@@ -113,6 +124,7 @@ def kernel_rows(dev, ch: int, gen):
     from t41x_torch.kernels import os_filter as kos
     from t41x_torch.kernels import sam as ksam
     from t41x_torch.kernels import xanr as kxanr
+    from t41x_torch.dsp import nb as nb_mod
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -198,6 +210,11 @@ def kernel_rows(dev, ch: int, gen):
         -80.0 + 90.0 * torch.rand(ch, generator=gen, device=dev))
     xc = randn(ch, C.BLOCK_SIZE, scale=0.5)
     rows.append(("C1 compressor", lambda: comp_mod.compress(cp, cst, xc)))
+
+    # N1: noise frames with an impulse every 70 samples
+    xn = randn(ch, C.AUDIO_BLOCK, scale=0.1)
+    xn[:, 40::70] += 2.0
+    rows.append(("N1 nb", lambda: nb_mod.noise_blanker(xn)))
     return rows
 
 
@@ -206,6 +223,7 @@ def launches() -> int:
     from t41x_torch.kernels import compressor as kcomp
     from t41x_torch.kernels import frontend as kfe
     from t41x_torch.kernels import interp as kint
+    from t41x_torch.kernels import nb as knb
     from t41x_torch.kernels import nr_gain as knr
     from t41x_torch.kernels import os_filter as kos
     from t41x_torch.kernels import sam as ksam
@@ -214,7 +232,7 @@ def launches() -> int:
             + kagc.agc_scan.launches + kint.FusedInterp.launches
             + kos.os_filter_matmul_kernel.launches + ksam.sam_block.launches
             + kxanr.xanr_block.launches + knr.kim_gains.launches
-            + kcomp.launch.launches)
+            + kcomp.launch.launches + knb.launch.launches)
 
 
 def run_rows() -> int:
@@ -303,8 +321,9 @@ def repeat_zoom7(times: int) -> None:
 
 def jittered(source: str):
     """A CUDA source with the spin of JITTER after every block or cluster
-    barrier and every named-barrier wait or arrival, and the number of
-    such sites it found."""
+    barrier and every named-barrier wait or arrival, and a lane's own
+    spin after every `warp_sync()`, and the number of such sites it
+    found."""
     sites = source.count("__syncthreads();") + source.count("cluster.sync();")
     out = source.replace("#include <cuda_runtime.h>",
                          "#include <cuda_runtime.h>\n" + JITTER, 1)
@@ -313,7 +332,9 @@ def jittered(source: str):
     out = out.replace("cluster.sync();",
                       "cluster.sync(); t41x_jitter(__LINE__);")
     out, named = NAMED_BARRIER.subn(r"\1; t41x_jitter(__LINE__);", out)
-    return out, sites + named
+    out, lanes = WARP_SYNC.subn("warp_sync(); t41x_jitter_lane(__LINE__);",
+                                out)
+    return out, sites + named + lanes
 
 
 def jitter_library():

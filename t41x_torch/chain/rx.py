@@ -459,7 +459,8 @@ class RxChain:
                                              audio,
                                              use_kernels=spec.use_kernels)
         if spec.nb_on:  # Process.cpp:873-876
-            audio = nb_mod.noise_blanker(audio)
+            audio = nb_mod.noise_blanker(audio,
+                                         use_kernel=spec.use_kernels)
         cw_state, cw_lp_state = state.cw, state.cw_lp
         if self.cw is not None:  # Process.cpp:878-913
             cw_state, outputs["cw_keyed"], outputs["cw_combined"] = \

@@ -12,10 +12,14 @@ The reference's noise blanker (tmr4/T41_SDR `AltNoiseBlanking`
 
 As in `t41x`, detection yields a blank MASK (dilated +-PL); the forward
 and backward predictors free-run inside masked regions and track the
-input outside, then blend with linear cross-fades.  The two predictor
-recurrences are serial over the frame and stay a loop of torch ops, as
-`t41x` leaves them to `lax.scan`; the cross-fade distances are a
-cumulative max of reset indices, equal to the scan exactly.
+input outside, then blend with linear cross-fades.  In
+`noise_blanker_plain` the two predictor recurrences are serial over the
+frame and stay a loop of torch ops, as `t41x` leaves them to `lax.scan`;
+the cross-fade distances are a cumulative max of reset indices, equal to
+the scan exactly.  On a CUDA tensor `noise_blanker` launches the
+hand-written kernel N1 (`t41x_torch/kernels/nb.py`), the whole blanker
+a frame in one launch, unless the caller asks for the plain version
+(`use_kernel=False`, as `ChainSpec(use_kernels=False)` does).
 """
 
 from __future__ import annotations
@@ -77,11 +81,10 @@ def _distance_from_start(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, t - last_reset, 0).to(torch.float32)
 
 
-def noise_blanker(x: torch.Tensor, thresh: float = NB_THRESH):
-    """x: (..., N) real audio frame(s).  Returns the blanked frames.
-
-    Stateless per frame like the reference; detections within ORDER+PL
-    of the frame edges are skipped, as in `t41x`."""
+def _detect(x: torch.Tensor, thresh: float):
+    """The detection half of the blanker: (lpcs, temp, threshold,
+    mask), temp the matched filter's output and mask the dilated blank
+    mask."""
     n = x.shape[-1]
     r = torch.stack([torch.sum(x[..., : n - i] * x[..., i:], dim=-1)
                      for i in range(ORDER + 1)], dim=-1)
@@ -110,7 +113,16 @@ def noise_blanker(x: torch.Tensor, thresh: float = NB_THRESH):
     for s in range(1, PL + 1):
         mask = mask | torch.roll(hits, s, dims=-1) \
             | torch.roll(hits, -s, dims=-1)
+    return lpcs, temp, threshold, mask
 
+
+def noise_blanker_plain(x: torch.Tensor, thresh: float = NB_THRESH):
+    """x: (..., N) real audio frame(s).  Returns the blanked frames, in
+    plain torch ops (any device).
+
+    Stateless per frame like the reference; detections within ORDER+PL
+    of the frame edges are skipped, as in `t41x`."""
+    lpcs, _, _, mask = _detect(x, thresh)
     a = -lpcs[..., 1:]  # prediction coefficients
     fwd = _run_pred(x, mask, a)
     bwd = _run_pred(x.flip(-1), mask.flip(-1), a).flip(-1)
@@ -122,3 +134,33 @@ def noise_blanker(x: torch.Tensor, thresh: float = NB_THRESH):
     w_bw = d_fw / torch.clamp(d_fw + d_bw, min=1.0)
     blended = (1.0 - w_bw) * fwd + w_bw * bwd
     return torch.where(mask, blended, x)
+
+
+def noise_blanker(x: torch.Tensor, thresh: float = NB_THRESH,
+                  use_kernel: bool = True):
+    """x: (..., N) real audio frame(s).  Returns the blanked frames.
+    CPU tensors, or `use_kernel=False`, take `noise_blanker_plain`; CUDA
+    tensors launch N1 (`t41x_torch.kernels.nb.launch`), which raises if
+    it cannot build or launch."""
+    if not (x.is_cuda and use_kernel):
+        return noise_blanker_plain(x, thresh)
+    from t41x_torch.kernels import nb as knb
+
+    return knb.launch(x.contiguous(), thresh)
+
+
+def decision_margin(x: torch.Tensor, thresh: float = NB_THRESH):
+    """The plain version's blank mask (..., N) and how near each decision
+    came to going the other way: at each guarded sample t,
+    | |temp[t + ORDER]| - threshold | / threshold (the hit test that
+    sample's bit comes from, shifted by the filter delay), inf at the
+    unguarded samples and where the threshold is 0.  A version that sums
+    in another order may decide otherwise only where the margin is of
+    the order of float32 rounding."""
+    n = x.shape[-1]
+    _, temp, threshold, mask = _detect(x, thresh)
+    margin = torch.roll((temp.abs() - threshold).abs() / threshold, -ORDER,
+                        dims=-1)
+    guard = torch.arange(n, device=x.device)
+    keep = (guard >= ORDER + PL) & (guard < n - 14) & (threshold > 0)
+    return mask, torch.where(keep, margin, torch.inf)

@@ -10,6 +10,12 @@
   adaptive stage (LMS NR, notch, SAM PLL), whose waveform trajectories
   diverge between any two arithmetic orders; the bound is 3 dB
   (`tools/chipcheck.py`'s "spectral" rows).
+* `nb_decisions` — a noise blanker's blank mask and output against the
+  plain version's: the masks may differ only at decisions whose margin
+  to the threshold is below `NB_MARGIN_MAX` (float32 rounding of sums
+  taken in another order), the output outside its own mask is the input
+  bit for bit, and on frames with equal masks the audio is within the
+  55 dB bound.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import numpy as np
 AUDIO_SNR_MIN_DB = 55.0
 SPECTRUM_ERR_MAX_DB = 0.5
 PSD_ERR_MAX_DB = 3.0
+NB_MARGIN_MAX = 1e-4
 
 
 def _np(a) -> np.ndarray:
@@ -56,3 +63,37 @@ def psd_err_db(ref, got, last: int = 2) -> float:
     pr, pg = psd(ref), psd(got)
     mask = pr > pr.max() - 40.0
     return float(np.max(np.abs(pg[mask] - pr[mask])))
+
+
+def nb_decisions(x, y_k, mask_k, y_p, mask_p, margin_p, pl: int = 3) -> dict:
+    """Frames x (..., n); the blanker under test's output y_k and blank
+    mask mask_k; the plain version's y_p, mask_p and decision margins
+    margin_p (`t41x_torch.dsp.nb.decision_margin`), all torch tensors on
+    one device.  A decision whose margin is below NB_MARGIN_MAX may go
+    either way, and with it the +-`pl` samples it blanks.  Returns the
+    counts and `ok`: no other sample's decision differs, y_k equals x
+    bit for bit outside mask_k, every value is finite, and the frames
+    whose masks are equal are >= AUDIO_SNR_MIN_DB from y_p."""
+    import torch
+
+    near_hit = margin_p < NB_MARGIN_MAX
+    near = near_hit.clone()
+    for s in range(1, pl + 1):
+        near |= torch.roll(near_hit, s, -1) | torch.roll(near_hit, -s, -1)
+    differ = mask_k ^ mask_p
+    same = ~differ.any(dim=-1)
+    out = {
+        "frames": int(same.numel()),
+        "blanked_samples": int(mask_p.sum()),
+        "near_threshold": int(near_hit.sum()),
+        "mask_samples_differ": int(differ.sum()),
+        "frames_differ": int((~same).sum()),
+        "unexplained": int((differ & ~near).sum()),
+        "passthrough_exact": bool(torch.equal(y_k[~mask_k], x[~mask_k])),
+        "finite": bool(torch.isfinite(y_k).all()),
+        "snr_db": snr_db(y_p[same], y_k[same]) if bool(same.any())
+        else float("inf"),
+    }
+    out["ok"] = (out["unexplained"] == 0 and out["passthrough_exact"]
+                 and out["finite"] and out["snr_db"] >= AUDIO_SNR_MIN_DB)
+    return out

@@ -196,27 +196,33 @@ def test_k3_bound_arithmetic_matches_the_hand_count():
 def test_jittered_sources_spin_after_every_barrier():
     """kernel_sanitize.py's race check builds every source with a spin
     after each block and cluster barrier and each call of a named-barrier
-    helper (C1's four: its two roles' waits and arrivals)."""
+    helper (C1's four: its two roles' waits and arrivals), and a lane's
+    own spin after each call of N1's warp barrier helper (its four
+    `warp_sync()` between a frame's phases)."""
     import re
 
     import kernel_sanitize
     from t41x_torch.kernels import _build
-    total = named = 0
+    total = named = lanes = 0
     for f in sorted(_build.SRC_DIR.glob("*.cu")):
         src = f.read_text()
         text, sites = kernel_sanitize.jittered(src)
         calls = len(re.findall(r"named_bar_(?:sync|arrive)\(\w", src)) - len(
             re.findall(r"void named_bar_(?:sync|arrive)\(", src))
+        warp = src.count("warp_sync();")
         assert sites == (src.count("__syncthreads();")
-                         + src.count("cluster.sync();") + calls) > 0
-        assert text.count("t41x_jitter(__LINE__);") == sites
+                         + src.count("cluster.sync();") + calls + warp) > 0
+        assert text.count("t41x_jitter(__LINE__);") == sites - warp
+        assert text.count("t41x_jitter_lane(__LINE__);") == warp
         assert text.count("static __device__ __forceinline__ void "
                           "t41x_jitter(unsigned site)") == 1
         # the helpers' definitions are left alone
         assert "void named_bar_sync(int id) t41x_jitter" not in text
+        assert "void warp_sync() t41x_jitter" not in text
         total += sites
         named += calls
-    assert named == 4
+        lanes += warp
+    assert named == 4 and lanes == 4
     assert total >= 30
 
 
@@ -231,7 +237,7 @@ def test_chip_scripts_never_import_jax():
         "import chip_smoke, kernel_ab, kernel_sanitize, kernel_study\n"
         "g = torch.Generator().manual_seed(0)\n"
         "rows = kernel_sanitize.kernel_rows(torch.device('cpu'), 3, g)\n"
-        "assert len(rows) == 18, len(rows)\n"  # K1-K8 and C1
+        "assert len(rows) == 19, len(rows)\n"  # K1-K8, C1 and N1
         "bad = [m for m in sys.modules if m == 't41x' or "
         "m.startswith(('t41x.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n")
