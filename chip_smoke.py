@@ -32,8 +32,11 @@ failure):
    zoom 2^z variant K1z (zoom 1, 3, 7 complex64, zoom 1 q15), K2 the
    AGC block, K3 the output interpolation, K4 the overlap-save matmul,
    K5 the AGC recurrence of 64-sample blocks, K6 the SAM PLL, K7 the LMS
-   in NR and notch form, K8 the Kim NR gains, N1 the noise blanker (no
-   TPU counterpart: t41x runs lax.scans); and time each: its device
+   in NR and notch form, K8 the Kim NR gains, N1 the noise blanker, S1
+   spectral NR's gain recursion at 2 and 16 hops a launch over 128 hops
+   from the initial state, E1 the 14-band EQ at 1024 channels and at
+   one over 16 blocks (N1, S1 and E1 have no TPU counterpart: t41x runs
+   lax.scans); and time each: its device
    time per launch (torch.profiler, 20 launches after 3 warm-up, L2
    flushed before each, so that its inputs come from device memory), its
    wrapper and its plain version (CUDA events, median of 25 runs after
@@ -49,7 +52,11 @@ failure):
    version's blank mask but at decisions within 1e-4 of the threshold
    (counted), the input bit for bit outside its mask and >= 55 dB on the
    frames whose masks are equal, silent frames passed through (`parity.
-   nb_decisions`), and the `clock64`
+   nb_decisions`), S1 its plain version's NN choices but within 1e-4
+   of a boundary (counted), its gains within 1e-5 relative + 3e-5
+   elsewhere (`parity.nr_decisions`), its states within 1e-5 relative
+   (bit for bit counted) and its init flags equal, E1 >= 100 dB from its
+   plain version (output and state, every block), and the `clock64`
    split per phase of K2, K3, K5, K6, K7 and N1 (cold and warm) goes to
    the log.  Each kernel's bound is the larger of the operations its
    function needs over the card's fp32 peak (67 TFLOP/s) and its bytes
@@ -62,8 +69,8 @@ failure):
    q15 ingest, then am, sam,
    nfm (with and without display taps), Kim, spectral and LMS NR, the
    notch, ft8, psk31, the zoom 2^z panadapter (zoom 1, 3, 7, zoom 1 with
-   q15), the radio's default spec, cw, the receive EQ and the noise
-   blanker; and one short-block AGC path (`agc_apply` over 64-sample
+   q15), the radio's default spec, cw, the receive EQ (E1) and the
+   noise blanker; spectral NR launches S1; and one short-block AGC path (`agc_apply` over 64-sample
    pieces, K5).  Each path's kernel launches are counted in its run
    (every count is set to 0 just before it), and its outputs are held
    against the same path with plain versions on the card (the noise
@@ -104,10 +111,12 @@ failure):
    clock64 split, whose envelope phase is the measured serial floor of
    a block's 2048 dependent steps; (b) the SSB exciter
    at 1024 channels (usb with EQ and compressor, lsb with compressor)
-   with C1 against the plain loop (I/Q SNR >= 55 dB) and ms a block,
-   `Radio.transmit_ssb` (the default config, which compresses: C1's
-   main path, its launches counted) and `transmit_cw` at one channel in
-   ms a block against the 10.667 ms budget, and a TX -> RX loopback
+   with C1 and E1 against the plain loops (I/Q SNR >= 55 dB) and ms a
+   block, `Radio.transmit_ssb` (the default config, which compresses:
+   C1's main path, its launches counted), the same with the transmit EQ
+   on (E1 at one channel, counted, >= 55 dB from the plain chain) and
+   `transmit_cw` at one channel in ms a block against the 10.667 ms
+   budget, and a TX -> RX loopback
    (audio SNR > 10 dB); (c) FT8: a slot of 15 `transmit_ft8` signals
    and a two-signal slot through `Radio.decode_ft8` on the card, every
    message decoded and the decodes equal to the decoder's on the CPU on
@@ -155,7 +164,7 @@ failure):
 It prints the kernels' JSON line (per kernel: its launches and launches
 per block on the main paths, max |err|, device ms a launch, the
 wrapper's, the plain version's and the library call's times, its flops,
-bytes and bound), phase 5's `{"runner": ...}`, phase 6's `{"txdec":
+bytes and bound, and the bound's share of the launch), phase 5's `{"runner": ...}`, phase 6's `{"txdec":
 ...}`, phase 7's `{"mesh": ...}` and phase 8's `{"tools": ...}` lines,
 the card's name and
 power limit as
@@ -202,6 +211,15 @@ C1_MAX_ULP = 0      # C1 against its plain loop on the card: bit for bit
 # Levinson recursion, predictors and cross-fade distances as lax.scans
 # (t41x/dsp/nb.py:63, :126, :138; the predictors' given)
 N1 = ("t41x_torch/csrc/nb.cu", "t41x/dsp/nb.py:126")
+# S1 and E1 replace no TPU kernel either: t41x runs spectral NR's gain
+# recursion and the 14-band EQ as lax.scans (the lines given)
+S1 = ("t41x_torch/csrc/spectral_nr.cu", "t41x/dsp/nr.py:433")
+E1 = ("t41x_torch/csrc/eq.cu", "t41x/dsp/eq.py:110")
+# their rows, by the shapes the main paths give them: S1 at 2 hops a
+# call (`spectral_nr`, a block) and 16 (`spectral_nr_batch` over 8
+# blocks), E1 at 1024 channels and at one (`Radio.transmit_ssb`)
+S1_ROWS = {2: "S1 spectral_gains 2 hops", 16: "S1 spectral_gains 16 hops"}
+E1_ROWS = {"channels": "E1 eq 1024 x 256", "one": "E1 eq 1 x 256"}
 
 # the main paths: ChainSpec keywords, parity measure, and the kernels that
 # must launch
@@ -223,7 +241,7 @@ SPECS = {
     "nr_kim": (dict(mode="usb", nr_mode=1), "waveform",
                ("K1", "K2", "K3", "K8")),
     "nr_spectral": (dict(mode="usb", nr_mode=2), "waveform",
-                    ("K1", "K2", "K3")),
+                    ("K1", "K2", "K3", "S1")),
     "nr_lms": (dict(mode="usb", nr_mode=3), "adaptive",
                ("K1", "K2", "K3", "K7")),
     "notch": (dict(mode="usb", notch_on=True), "adaptive",
@@ -245,7 +263,8 @@ SPECS = {
                   "waveform", ("K1", "K2", "K3")),
     "cw": (dict(mode="cw", cw_filter_index=2), "waveform",
            ("K1", "K2", "K3")),
-    "eq": (dict(mode="usb", eq_on=True), "waveform", ("K1", "K2", "K3")),
+    "eq": (dict(mode="usb", eq_on=True), "waveform",
+           ("K1", "K2", "K3", "E1")),
     "nb": (dict(mode="usb", nb_on=True), "waveform",
            ("K1", "K2", "K3", "N1")),
 }
@@ -266,7 +285,8 @@ KERNEL_NAMES = {"K1": "frontend_kernel", "K2": "agc_kernel",
                 "K3": "interp_kernel", "K4": "os_filter_kernel",
                 "K5": "agc_scan_kernel", "K6": "sam_kernel",
                 "K7": "xanr_kernel", "K8": "kim_gain_kernel",
-                "C1": "compress_kernel", "N1": "nb_kernel"}
+                "C1": "compress_kernel", "N1": "nb_kernel",
+                "S1": "spectral_gain_kernel", "E1": "eq_kernel"}
 
 
 def k1_flops(n_ch: int, zoom=None, n: int = 2048, t1: int = 28,
@@ -325,6 +345,9 @@ OPS_PER_ELEMENT = {
     "K6": 60,      # per sample: mix, atan series (15 FMAs), loop filter
     "K7": 4 * 64 + 16,  # per sample: 64-tap prediction and update
     "K8": 40,      # per bin and hop: minimum statistics, Wiener rule
+    # per bin and hop: the noise tracking (exp counted as one), the SNRs
+    # and gain, the two in-band sums, the box filter and the selects
+    "S1": 60,
     "C1": 60,      # per sample: log10f, the envelope step, powf
     # per sample: the 11 lags (22), the two 11-tap FIRs (44), the
     # variance (4) and the hit test (2); n1_flops adds the rest
@@ -343,6 +366,14 @@ def n1_flops(x, mask) -> int:
     frames = x.numel() // x.shape[-1]
     return (OPS_PER_ELEMENT["N1"] * x.numel() + N1_OPS_PER_FRAME * frames
             + N1_OPS_PER_BLANKED * int(mask.sum()))
+
+
+def e1_flops(x) -> int:
+    """fp32 operations of the 14-band EQ on audio x (..., n), by
+    `k1_flops`' rule: those of the sample-by-sample recurrences, not of
+    the chunk form: per sample and band two biquad sections of ~10
+    operations and the band's gain-weighted add (an FMA, 2)."""
+    return x.numel() * 14 * (2 * 10 + 2)
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -1104,6 +1135,16 @@ def c1_check(dev, card: str, rows: list, row) -> tuple:
     return c1, a
 
 
+def _feed_row(rows: list, name: str, launches: int, blocks: int) -> None:
+    """Add a main path's launches of one kernel variant, and the blocks
+    it ran, to that variant's row, where the run has one (`--txdec`
+    has only C1's)."""
+    for r in rows:
+        if launches and r["name"] == name:
+            r["launches"] += launches
+            r["blocks"] += blocks
+
+
 def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
     """Phase 6, the transmit chains and the decoders on the card: (a) C1
     against its plain loop; (b) the SSB exciter at 1024 channels, the
@@ -1165,6 +1206,8 @@ def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
         _, iq_k = stream(ex)
         torch.cuda.synchronize()
         launches = read_counts()["C1"]
+        n_e1 = read_counts().get("E1", 0)
+        _feed_row(rows, E1_ROWS["channels"], n_e1, TX_BLOCKS)
         _, iq_p = stream(ex_p)
         snr = parity.snr_db(iq_p.cpu().numpy(), iq_k.cpu().numpy())
         st0 = ex.init_state((TX_CHANNELS,))
@@ -1172,11 +1215,12 @@ def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
         ms = time_ms(lambda: ex.block(pr, st0, blk))
         ms_plain = time_ms(lambda: ex_p.block(pr, st0, blk), REPS_PLAIN)
         result["b"][name] = {"channels": TX_CHANNELS, "blocks": TX_BLOCKS,
-                             "c1_launches": launches,
+                             "c1_launches": launches, "e1_launches": n_e1,
                              "iq_snr_db": _finite(snr),
                              "ms_a_block": ms, "ms_a_block_plain": ms_plain}
         log(f"# phase 6 (b) SSBExciter {name}: {result['b'][name]} ({card})")
-        if launches != TX_BLOCKS or not snr >= parity.AUDIO_SNR_MIN_DB:
+        if launches != TX_BLOCKS or not snr >= parity.AUDIO_SNR_MIN_DB \
+                or n_e1 != (TX_BLOCKS if kw.get("eq_on") else 0):
             raise AssertionError(f"phase 6 (b) {name}: {result['b'][name]}")
 
     # the radio's transmit entry points, one channel, the default config
@@ -1219,6 +1263,26 @@ def tx_decoders(dev, card: str, rows: list, row, time_ms, counts) -> dict:
             >= parity.AUDIO_SNR_MIN_DB
             and np.isfinite(cw).all() and r["cw_peak"] > 0.1):
         raise AssertionError(f"phase 6 (b) radio: {r}")
+
+    # the same with the transmit EQ on: E1 at one channel, its shared
+    # (14,) gains the config's, against the plain chain
+    radio.set_eq("tx", True)
+    n_eq = 8 * C.BLOCK_SIZE
+    reset_counts()
+    iq_eq = radio.transmit_ssb(voice[:n_eq])
+    n_e1 = read_counts()["E1"]
+    iq_eq_plain = radio.transmit_ssb(voice[:n_eq], use_kernels=False)
+    radio.set_eq("tx", False)
+    _feed_row(rows, E1_ROWS["one"], n_e1, n_eq // C.BLOCK_SIZE)
+    r = result["b"]["radio_eq"] = {
+        "e1_launches": n_e1, "blocks": n_eq // C.BLOCK_SIZE,
+        "plain_vs_kernel_snr_db": _finite(parity.snr_db(iq_eq_plain,
+                                                         iq_eq))}
+    log(f"# phase 6 (b) Radio.transmit_ssb with the transmit EQ, 1 "
+        f"channel: {r} ({card})")
+    if n_e1 != n_eq // C.BLOCK_SIZE or not (
+            float(r["plain_vs_kernel_snr_db"]) >= parity.AUDIO_SNR_MIN_DB):
+        raise AssertionError(f"phase 6 (b) radio with EQ: {r}")
 
     # the TX -> RX loopback of tests/test_tx.py: voice proxy ->
     # transmit_ssb -> the port's usb chain at the RX frequency plan
@@ -1779,9 +1843,24 @@ def _kernels_of(kw: dict) -> set:
         need.add("K7")
     if kw.get("nr_mode") == 1:
         need.add("K8")
+    if kw.get("nr_mode") == 2:
+        need.add("S1")
+    if kw.get("eq_on"):
+        need.add("E1")
     if kw.get("nb_on"):
         need.add("N1")
     return need
+
+
+def _variant_rows(kw: dict) -> dict:
+    """The kernels' rows a spec's launches go to, for the kernels with
+    variant rows (phase 3's names): K1's by zoom and format, K7's by
+    form, S1's by hops a launch (a `_batched` stagebench variant runs
+    `block_batch` over 8 blocks: 16 hops), E1's at 1024 channels."""
+    return {"K1": _k1_row(kw),
+            "K7": f"K7 xanr {'notch' if kw.get('notch_on') else 'nr'}",
+            "S1": S1_ROWS[16 if kw.get("_batched") else 2],
+            "E1": E1_ROWS["channels"]}
 
 
 def _k1_row(kw: dict) -> str:
@@ -1831,11 +1910,11 @@ def tools_layer(dev, card: str, counts, feed) -> dict:
         kw = {**bench.cfg_map()[cfg["bench"]], "q15_input": cfg["q15"],
               "spectrum_taps": cfg["spectrum_taps"],
               "interpolate_out": cfg["interpolate_out"]}
-        need = set() if cfg["bench"] == "tx" else _kernels_of(kw)
+        tx = cfg["bench"] == "tx"
+        need = {"E1"} if tx else _kernels_of(kw)
         if any(c[k] == 0 for k in need):
             raise AssertionError(f"phase 8 (a) bench {name}: launches {c}")
-        if need:
-            feed(c, {"K1": _k1_row(kw)}, c["K1"])
+        feed(c, _variant_rows(kw), c["E1"] if tx else c["K1"])
         lin = cfg["linearity_2x_time_ratio"]
         if cuda and not (cfg["graphed"] and cfg["checksum_graph_equals_eager"]
                          and LINEARITY[0] <= lin <= LINEARITY[1]):
@@ -1892,9 +1971,7 @@ def tools_layer(dev, card: str, counts, feed) -> dict:
         if kw["use_kernels"]:
             if any(c[k] == 0 for k in _kernels_of(kw)):
                 raise AssertionError(f"phase 8 (b) {name}: launches {c}")
-            feed(c, {"K1": _k1_row(kw),
-                     "K7": f"K7 xanr {'notch' if kw.get('notch_on') else 'nr'}"},
-                 c["K1"])
+            feed(c, _variant_rows(kw), c["K1"])
         elif launched:
             raise AssertionError(f"phase 8 (b) plain {name}: launches {c}")
         if cuda and not r["graphed"]:
@@ -1984,6 +2061,12 @@ def main(argv: list[str]) -> int:
             from t41x_torch.kernels import nb as knb
         else:   # --kernels on a tree from before N1 (kernel_ab.py)
             knb = None
+        if root is None or (root / "t41x_torch/kernels/eq.py").exists():
+            from t41x_torch.dsp import eq as eq_mod
+            from t41x_torch.kernels import eq as keq
+            from t41x_torch.kernels import spectral_nr as kspec
+        else:   # --kernels on a tree from before S1 and E1
+            keq = kspec = None
     except ImportError as e:
         print(f"chip_smoke: t41x_torch is not importable ({e}); run it "
               "from the repository root", file=sys.stderr)
@@ -2016,6 +2099,9 @@ def main(argv: list[str]) -> int:
                 "C1": (kcomp.launch, "launches")}
     if knb is not None:
         counters["N1"] = (knb.launch, "launches")
+    if kspec is not None:
+        counters["S1"] = (kspec.spectral_gains, "launches")
+        counters["E1"] = (keq.eq_block, "launches")
 
     def reset_counts():
         for obj, attr in counters.values():
@@ -2142,17 +2228,20 @@ def main(argv: list[str]) -> int:
         plain_dev = device_us(fn_p) / 1e3 if plain_device else None
         lib_ms = device_us(library) / 1e3 if library is not None else None
         b = bound(flops, nbytes(ins, outs))
+        share = b["bound_ms"] * 1e3 / dev_us
         rows.append(dict(name=name, route="cuda", source=src[0],
                          replaces=src[1], launches=0, blocks=0,
                          max_abs_err=err, ms=dev_us / 1e3,
                          wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                         plain_device_ms=plain_dev, library_ms=lib_ms, **b))
+                         plain_device_ms=plain_dev, library_ms=lib_ms,
+                         bound_share=share, **b))
         within = (tol if isinstance(tol, str)
                   else f"rtol {tol[0]}, atol {tol[1]}")
         log(f"# {name}: max |err| {err:.3g} within {within}; device "
             f"{dev_us:.2f} us a launch, bound "
             f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}; {b['flops']:.4g} "
-            f"flop, {b['bytes']:.4g} B); wrapper {wrapper_ms:.4f} ms, "
+            f"flop, {b['bytes']:.4g} B; {share:.1%} of the launch); wrapper "
+            f"{wrapper_ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms"
             + (f" ({plain_dev * 1e3:.2f} us on the device)"
                if plain_dev is not None else "")
@@ -2510,6 +2599,118 @@ def main(argv: list[str]) -> int:
         log_phases("N1", lambda: knb.nb_phases(xa)[1], knb.N1_PHASES, card,
                    "predict", float(m_p.sum()) / N_CH)
 
+    # S1: audio at the chain's rate through the NR's own transforms to
+    # its bin powers, per channel a noise level of its own and a keyed
+    # 700 Hz tone at 0-100 times it (the in-band ratio sweeps the five
+    # widths), every 8th channel silent; from the initial state, so the
+    # streams cross the 20 init hops: 32 blocks 2 hops a launch
+    # (`spectral_nr`), then 8 launches of 16 (`spectral_nr_batch`),
+    # each the kernel's and the plain version's own state carried.
+    # The NN choices may differ only within parity.NR_MARGIN_MAX of a
+    # boundary (`parity.nr_decisions`, counted); the states within
+    # parity.NR_STATE_RTOL (bit for bit counted), the init flags equal
+    if kspec is not None:
+        spp = nr_mod.spectral_params(200.0, 3000.0)
+        n_s1 = 32 + 8 * 8
+        t = torch.arange(n_s1 * C.AUDIO_BLOCK, device=dev) / C.AUDIO_RATE
+        lvl = 10.0 ** (3.0 * torch.rand(N_CH, 1, generator=gen,
+                                        device=dev) - 3.0)
+        keyed = (torch.rand(N_CH, n_s1, generator=gen, device=dev) < 0.5
+                 ).repeat_interleave(C.AUDIO_BLOCK, dim=-1)
+        amp = lvl * torch.tensor([0.0, 1.0, 10.0, 100.0], device=dev)[
+            torch.randint(0, 4, (N_CH, 1), generator=gen, device=dev)]
+        aud = lvl * torch.randn(N_CH, t.numel(), generator=gen, device=dev) \
+            + amp * keyed * torch.sin(2 * np.pi * 700.0 * t)
+        aud[4::8] = 0.0
+        aud = aud.reshape(N_CH, n_s1, C.AUDIO_BLOCK).movedim(1, 0)
+        sst = nr_mod.spectral_state((N_CH,), dev)
+        g_k = g_p = (sst.xt, sst.pslp, sst.hk_old, sst.frames)
+        last, b = sst.last_sample, 0
+        window = nr_mod._window(nr_mod._sqrt_hann, aud)
+        for hops, calls in ((2, 32), (16, 8)):
+            rep_all, err, exact = Counter(), 0.0, True
+            for _ in range(calls):
+                xs = aud[b: b + hops // 2]
+                b += hops // 2
+                _, frames = nr_mod._hop_frames(last, xs)
+                last = xs[-1, ..., nr_mod.HOP:]
+                pw = nr_mod._half_spectra(frames * window)[2]
+                nn_k = torch.empty(pw.shape[:-1], dtype=torch.int32,
+                                   device=dev)
+                g_k, y_k, i_k = kspec.spectral_gains(spp, g_k, pw, nn_k)
+                nn_p, margin = nr_mod.spectral_decision_margin(spp, g_p, pw)
+                g_p, y_p, i_p = kspec.spectral_gains_plain(spp, g_p, pw)
+                rep = parity.nr_decisions(y_k, nn_k, y_p, nn_p, margin)
+                if not (rep["ok"] and torch.equal(i_k, i_p)
+                        and torch.equal(g_k[3], g_p[3])):
+                    raise AssertionError(f"S1 vs its plain version: {rep}")
+                for i, (a, r) in enumerate(zip(g_k[:3], g_p[:3])):
+                    close(f"S1 state[{i}]", a, r, parity.NR_STATE_RTOL, 1e-30)
+                    exact &= torch.equal(a, r)
+                rep_all.update({k: v for k, v in rep.items()
+                                if k not in ("ok", "finite", "max_abs_err")})
+                err = max(err, rep["max_abs_err"])
+            log(f"# S1 {hops} hops a launch, {calls} launches against the "
+                f"plain version: {dict(rep_all)}, gains max |err| {err:.3g}, "
+                f"states bit for bit: {exact} ({N_CH} channels, {card})")
+            g_row = g_k
+            row(S1_ROWS[hops], S1, lambda: kspec.spectral_gains(spp, g_row, pw),
+                lambda: kspec.spectral_gains_plain(spp, g_row, pw), err,
+                f"NN choices within {parity.NR_MARGIN_MAX} of a boundary "
+                f"({rep_all['choices_differ']} differing), gains rtol "
+                f"{parity.NR_GAIN_RTOL}, atol {parity.NR_GAIN_ATOL}",
+                OPS_PER_ELEMENT["S1"] * pw.numel(), (pw, g_row),
+                kspec.spectral_gains(spp, g_row, pw))
+
+    # E1: audio at every channel's level of its own (noise and tones at
+    # three band centres), per-channel gains with one band at 0, from a
+    # random state, 16 blocks of 256 each carrying its own state; and
+    # one channel with shared (14,) gains (Radio.transmit_ssb).  Output
+    # and state >= parity.EQ_SNR_MIN_DB from the plain version's every
+    # block
+    if keq is not None:
+        eqd = eq_mod.EQDesign()
+        centres = torch.tensor(eq_mod.band_centers(), device=dev,
+                               dtype=torch.float32)
+        for ch in (N_CH, 1):
+            lead = (ch,) if ch > 1 else ()
+            t = torch.arange(16 * C.AUDIO_BLOCK, device=dev) / C.AUDIO_RATE
+            lvl = 10.0 ** (3.0 * torch.rand(ch, 1, generator=gen,
+                                            device=dev) - 3.0)
+            fc = centres[torch.randint(0, 14, (ch, 3), generator=gen,
+                                       device=dev)]
+            aud = lvl * (torch.randn(ch, t.numel(), generator=gen,
+                                     device=dev)
+                         + torch.sin(2 * np.pi * fc[..., None] * t).sum(1))
+            aud = aud.reshape(ch, 16, C.AUDIO_BLOCK).movedim(1, 0)
+            gains = torch.rand(ch, 14, generator=gen, device=dev)
+            gains[torch.arange(ch), torch.arange(ch) % 14] = 0.0
+            e_st = 0.1 * torch.randn(ch, 14, 2, 2, generator=gen, device=dev)
+            aud, gains, e_st = (aud.reshape((16,) + lead + (-1,)),
+                                gains.reshape(lead + (14,)),
+                                e_st.reshape(lead + (14, 2, 2)))
+            s_k = s_p = e_st
+            worst, err = np.inf, 0.0
+            for b in range(16):
+                s_k, y_k = eqd.apply(s_k, aud[b], gains, use_kernels=True)
+                s_p, y_p = eqd.apply_plain(s_p, aud[b], gains)
+                if not bool(torch.isfinite(y_k).all()):
+                    raise AssertionError("E1: non-finite output")
+                worst = min(worst, parity.snr_db(y_p, y_k),
+                            parity.snr_db(s_p, s_k))
+                err = max(err, float((y_k - y_p).abs().max()))
+            log(f"# E1 {ch} x {C.AUDIO_BLOCK} against the plain version over "
+                f"16 blocks: worst {worst:.1f} dB (output and state), max "
+                f"|err| {err:.3g} ({card})")
+            if not worst >= parity.EQ_SNR_MIN_DB:
+                raise AssertionError(f"E1 at {ch} channels: {worst} dB")
+            x0 = aud[0]
+            row(E1_ROWS["channels" if ch > 1 else "one"], E1,
+                lambda: eqd.apply(s_k, x0, gains, use_kernels=True),
+                lambda: eqd.apply_plain(s_k, x0, gains), err,
+                f"{parity.EQ_SNR_MIN_DB} dB ({worst:.1f})", e1_flops(x0),
+                (x0, s_k, gains), eqd.apply(s_k, x0, gains, use_kernels=True))
+
     def profile(name, blk, pr):
         """Where the time goes on spec `name`: device time per block of
         each CUDA kernel, by name, and the number of kernels a block,
@@ -2625,10 +2826,7 @@ def main(argv: list[str]) -> int:
             if counts[k] == 0:
                 raise AssertionError(f"{name}: kernel {k} was not launched")
         # each launch goes to the row of the variant this spec runs
-        feed(counts, {
-            "K1": f"K1 frontend zoom={zoom if zoom >= 0 else None} "
-                  f"{'q15' if q else 'c64'}",
-            "K7": f"K7 xanr {'notch' if kw.get('notch_on') else 'nr'}"}, B)
+        feed(counts, _variant_rows(kw), B)
         want = {"audio": (B, N_CH, C.BLOCK_SIZE
                           if kw.get("interpolate_out", True)
                           else C.AUDIO_BLOCK),

@@ -11,8 +11,9 @@ The first form runs each kernel row of `chip_smoke.py` phase 2 once at
 small odd channel counts (7 and 33; K1 zoom None/0 in complex64 and
 q15, K1z at zoom 1, 3 and 7 and zoom 1 in q15, K2, K3 on a contiguous
 row and on the real part of a complex64 row, K4, K5, K6, K7 in NR and
-notch form, K8, C1, the transmit chain's compressor of phase 6, and N1,
-the noise blanker),
+notch form, K8, C1, the transmit chain's compressor of phase 6, N1,
+the noise blanker, S1, spectral NR's gains at 2 and 16 hops, and E1,
+the EQ, at every channel and at one),
 each twice on the same inputs, and fails unless the two
 runs agree bit for bit: a race that changes what a kernel computes
 shows there.  No profiler and no plain versions, so that the form is
@@ -37,8 +38,8 @@ after each `__syncthreads()` and `cluster.sync()` and after each wait
 at or arrival on a named barrier (`named_bar_sync`, `named_bar_arrive`:
 C1's two warp roles meet there), spins for 0-2047 cycles chosen by its
 block, its warp and the call site, and every lane, after each
-`warp_sync()` (N1's lanes exchange a frame's arrays through shared
-memory there), for 0-2047 cycles chosen by its block, warp, lane and
+`warp_sync()` (N1's lanes exchange a frame's arrays, E1's a chunk's
+input and states, through shared memory there), for 0-2047 cycles chosen by its block, warp, lane and
 the call site; and holds every row of the first form, at 7, 33 and
 1024 channels, against the normal library bit for bit.  A phase that
 reads what another warp (or lane) writes without a barrier between
@@ -65,7 +66,8 @@ JITTER_CHANNELS = (7, 33, 1024)
 # a call of a kernel's named-barrier helpers (C1's warp roles meet at
 # `named_bar_sync(id)` and `named_bar_arrive(id)`), not their definitions
 NAMED_BARRIER = re.compile(r"\b(named_bar_(?:sync|arrive)\([^;(){}]*\));")
-# a call of N1's warp barrier helper (`warp_sync()`), not its definition
+# a call of N1's or E1's warp barrier helper (`warp_sync()`), not its
+# definition
 WARP_SYNC = re.compile(r"\bwarp_sync\(\);")
 # the spin the jittered build puts after every block or cluster barrier
 # and every named-barrier wait or arrival
@@ -124,7 +126,8 @@ def kernel_rows(dev, ch: int, gen):
     from t41x_torch.kernels import os_filter as kos
     from t41x_torch.kernels import sam as ksam
     from t41x_torch.kernels import xanr as kxanr
-    from t41x_torch.dsp import nb as nb_mod
+    from t41x_torch.kernels import spectral_nr as kspec
+    from t41x_torch.dsp import eq as eq_mod, nb as nb_mod
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -215,6 +218,29 @@ def kernel_rows(dev, ch: int, gen):
     xn = randn(ch, C.AUDIO_BLOCK, scale=0.1)
     xn[:, 40::70] += 2.0
     rows.append(("N1 nb", lambda: nb_mod.noise_blanker(xn)))
+
+    # S1: 2 and 16 hops, from a state whose frame counts straddle the
+    # init phase's end
+    nr_p = nr_mod.spectral_params(200.0, 3000.0)
+    nr_st = nr_mod.spectral_state((ch,), dev)
+    nr_g = (nr_st.xt, nr_st.pslp, nr_st.hk_old,
+            torch.arange(ch, dtype=torch.int32, device=dev) % 40)
+    for hops in (2, 16):
+        nr_pw = torch.rand(hops, ch, nr_mod.HOP, generator=gen,
+                           device=dev) * 4.0
+        rows.append((f"S1 spectral_gains {hops} hops",
+                     lambda nr_pw=nr_pw: kspec.spectral_gains(nr_p, nr_g,
+                                                              nr_pw)))
+
+    # E1: per-channel gains from a random state, and one channel with
+    # shared gains (Radio.transmit_ssb)
+    eqd = eq_mod.EQDesign()
+    xe = randn(ch, C.AUDIO_BLOCK, scale=0.3)
+    ge = torch.rand(ch, eq_mod.NUM_BANDS, generator=gen, device=dev)
+    se = randn(ch, eq_mod.NUM_BANDS, 2, 2, scale=0.1)
+    rows.append(("E1 eq", lambda: eqd.apply(se, xe, ge, use_kernels=True)))
+    rows.append(("E1 eq 1 channel",
+                 lambda: eqd.apply(se[0], xe[0], ge[0], use_kernels=True)))
     return rows
 
 
@@ -228,11 +254,14 @@ def launches() -> int:
     from t41x_torch.kernels import os_filter as kos
     from t41x_torch.kernels import sam as ksam
     from t41x_torch.kernels import xanr as kxanr
+    from t41x_torch.kernels import eq as keq
+    from t41x_torch.kernels import spectral_nr as kspec
     return (kfe.FusedFrontEnd.launches + kagc.agc_block.launches
             + kagc.agc_scan.launches + kint.FusedInterp.launches
             + kos.os_filter_matmul_kernel.launches + ksam.sam_block.launches
             + kxanr.xanr_block.launches + knr.kim_gains.launches
-            + kcomp.launch.launches + knb.launch.launches)
+            + kcomp.launch.launches + knb.launch.launches
+            + kspec.spectral_gains.launches + keq.eq_block.launches)
 
 
 def run_rows() -> int:

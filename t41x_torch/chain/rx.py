@@ -15,8 +15,8 @@ state carried explicitly (`RxState`, the same fields and layouts as
 `t41x`'s, so `t41x_torch.utils.convert` moves a stream between the two
 mid-way) and channels on the leading axes.  `ChainSpec.use_kernels`
 routes the front end (with its zoom x1 or 2^z tap), AGC, SAM PLL, Kim
-NR gains, LMS/notch, interpolation and the display-free OS filter
-through the hand-written CUDA kernels of `t41x_torch.kernels` (their
+and spectral NR gains, LMS/notch, receive EQ, noise blanker,
+interpolation and the display-free OS filter through the hand-written CUDA kernels of `t41x_torch.kernels` (their
 plain torch versions on CPU tensors).  Every `ChainSpec` that `t41x`
 accepts runs here.
 """
@@ -307,7 +307,7 @@ class RxChain:
                                  use_kernels=spec.use_kernels)
         if spec.nr_mode == 2:
             return nr_mod.spectral_nr(self.spectral_nr_params, nr_state,
-                                      audio)
+                                      audio, use_kernels=spec.use_kernels)
         if spec.nr_mode == 3:
             return nr_mod.xanr(self.xanr_params, nr_state, audio,
                                use_kernels=spec.use_kernels)
@@ -429,7 +429,8 @@ class RxChain:
 
         if spec.eq_on:  # receive EQ (Process.cpp:828-831)
             upd["eq"], audio = self.eq.apply(state.eq, audio,
-                                             params.eq_gains)
+                                             params.eq_gains,
+                                             use_kernels=spec.use_kernels)
         return state._replace(**upd), audio, outputs
 
     def _os_filter(self, osf, x):
@@ -503,7 +504,8 @@ class RxChain:
                 audios.append(audio)
                 pre_outs.append(out)
             nr_state, audio = nr_mod.spectral_nr_batch(
-                self.spectral_nr_params, state.nr, torch.stack(audios))
+                self.spectral_nr_params, state.nr, torch.stack(audios),
+                use_kernels=self.spec.use_kernels)
             state = state._replace(nr=nr_state)
             outs = []
             for a, out in zip(audio, pre_outs):

@@ -17,7 +17,8 @@ Both are `(params, state, block) -> (state, iq)` functions, channel
 batched like the receive chain, on the exciter's device (the card
 unless the caller passes `device="cpu"`).  The FIR stages are the
 port's `dsp.fir`; on the card the compressor launches the kernel C1
-unless `TxSpec.use_kernels` is False (a field t41x's spec lacks).
+and the EQ the kernel E1 unless `TxSpec.use_kernels` is False (a field
+t41x's spec lacks).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ class TxSpec:
     hilbert_taps: int = 101
     compressor_on: bool = False
     sample_rate: float = C.SAMPLE_RATE
-    use_kernels: bool = True   # C1 on the card (the plain loop if False)
+    use_kernels: bool = True   # C1, E1 on the card (plain if False)
 
 
 class TxParams(NamedTuple):
@@ -136,7 +137,8 @@ class SSBExciter:
         dec2, x = fir.fir_decimate(st.dec2, x, t["h2"], C.DF2)
         eq_state = st.eq
         if self.eq:
-            eq_state, x = self.eq.apply(eq_state, x, params.eq_gains)
+            eq_state, x = self.eq.apply(eq_state, x, params.eq_gains,
+                                        use_kernels=self.spec.use_kernels)
 
         delay_st, i_part = fir.fir_apply(st.delay, x, t["delay_taps"])
         hilb_st, q_part = fir.fir_apply(st.hilb, x, t["hilbert"])

@@ -10,7 +10,9 @@ Three NR algorithms and the automatic notch, the reference's set
     gain recursion runs in the CUDA kernel K8 (`kernels.nr_gain`).
   * `spectral_nr` — UHSDR spectral-subtraction NR
     (`SpectralNoiseReduction`, `Noise.cpp:379-645`), with t41x's single
-    musical-noise pass after all gains.  Plain torch.
+    musical-noise pass after all gains.  With `use_kernels` the per-hop
+    gain recursion runs in the CUDA kernel S1 (`kernels.spectral_nr`);
+    its plain version is `spectral_gains_scan`.
   * `xanr` — WDSP variable-leak LMS predictor (`Xanr`,
     `Noise.cpp:322-370`): prediction = NR mode 3, error = the notch.  With
     `use_kernels` the per-sample recurrence runs in K7 (`kernels.xanr`).
@@ -310,9 +312,40 @@ def spectral_state(channels: tuple[int, ...] = (),
                                      device=device))
 
 
-def _spectral_gain(p: SpectralParams, gst, X: torch.Tensor):
-    """Per-hop gain update of `t41x.dsp.nr._spectral_gain`: (xt, pslp,
-    hk_old, frames) x bin powers -> (state', gain, initializing)."""
+def spectral_consts(p: SpectralParams):
+    """The scalars of `_spectral_gain` as torch rounds them to float32
+    (each Python double once; a division by a Python scalar is, on the
+    card, a product with its float32 reciprocal): 0.05 psini, xih1r,
+    pfac, ap, 1 - ap, psthr, 1 - pnsaf, ax, 1 - ax, the a-priori SNR
+    floor, alpha, 1 - alpha, power_threshold, 1 / power_threshold,
+    width, and the box filters' 1/3, 1/5, 1/7, 1/9."""
+    f = np.float32
+    ax = np.exp(-p.tinc / p.tax)
+    ap = np.exp(-p.tinc / p.tap)
+    xih1 = 10.0 ** (p.asnr_db / 10.0)
+    return tuple(float(v) for v in (
+        f(0.05 * p.psini), f(1.0 / (1.0 + xih1) - 1.0),
+        f((1.0 / p.pspri - 1.0) * (1.0 + xih1)), f(ap), f(1.0 - ap),
+        f(p.psthr), f(1.0 - p.pnsaf), f(ax), f(1.0 - ax),
+        f(10.0 ** (p.snr_prio_min_db / 20.0)), f(p.alpha),
+        f(1.0 - p.alpha), f(p.power_threshold),
+        f(1.0) / f(p.power_threshold), f(p.width),
+        *(f(1.0) / f(nn) for nn in (3, 5, 7, 9))))
+
+
+def _nn_choice(p: SpectralParams, ratio: torch.Tensor) -> torch.Tensor:
+    """The musical-noise pass's averaging window from the in-band power
+    ratio: an index 0..4 into the widths NN = 1, 3, 5, 7, 9 (int32)."""
+    nn_f = torch.where(ratio > p.power_threshold, 0.0,
+                       torch.round(p.width * (1.0 - ratio
+                                              / p.power_threshold)))
+    return torch.clamp(nn_f, 0, 4).to(torch.int32)
+
+
+def _spectral_ratio(p: SpectralParams, gst, X: torch.Tensor,
+                    in_band: torch.Tensor):
+    """The recursion of `_spectral_gain` up to the musical-noise pass:
+    (state', unsmoothed gain, initializing, in-band power ratio)."""
     xt_c, pslp_c, hk_old_c, frames_c = gst
     ax = np.exp(-p.tinc / p.tax)
     ap = np.exp(-p.tinc / p.tap)
@@ -349,13 +382,17 @@ def _spectral_gain(p: SpectralParams, gst, X: torch.Tensor):
 
     # musical-noise treatment: a dynamic averaging window NN from the
     # in-band power ratio (one pass after all gains, as t41x)
-    in_band = _in_band(p.vad_low, p.vad_high, X.device)
     pre = torch.where(in_band, X, 0.0).sum(dim=-1)
     post = torch.where(in_band, G * G * X, 0.0).sum(dim=-1)
     ratio = post / torch.clamp(pre, min=1e-30)
-    nn_f = torch.where(ratio > p.power_threshold, 0.0,
-                       torch.round(p.width * (1.0 - ratio
-                                              / p.power_threshold)))
+    return (xt, pslp, hk_old, frames_c + 1), G, initializing, ratio
+
+
+def _spectral_gain(p: SpectralParams, gst, X: torch.Tensor):
+    """Per-hop gain update of `t41x.dsp.nr._spectral_gain`: (xt, pslp,
+    hk_old, frames) x bin powers -> (state', gain, initializing)."""
+    in_band = _in_band(p.vad_low, p.vad_high, X.device)
+    gst, G, initializing, ratio = _spectral_ratio(p, gst, X, in_band)
 
     # NN in {1,3,5,7,9}: box filters of edge-replicated G, all from one
     # cumulative sum padded by 4 on each side
@@ -370,18 +407,21 @@ def _spectral_gain(p: SpectralParams, gst, X: torch.Tensor):
                 ) / nn
 
     G3, G5, G7, G9 = (box(nn) for nn in (3, 5, 7, 9))
-    nn_idx = torch.clamp(nn_f, 0, 4).to(torch.int32)[..., None]
+    nn_idx = _nn_choice(p, ratio)[..., None]
     G_sm = torch.where(
         nn_idx == 0, G, torch.where(
             nn_idx == 1, G3, torch.where(
                 nn_idx == 2, G5, torch.where(nn_idx == 3, G7, G9))))
     G = torch.where(in_band, G_sm, G)
-    return (xt, pslp, hk_old, frames_c + 1), G, initializing
+    return gst, G, initializing
 
 
-def _spectral_gains(p: SpectralParams, st: SpectralState,
-                    powers: torch.Tensor):
-    gst = (st.xt, st.pslp, st.hk_old, st.frames)
+def spectral_gains_scan(p: SpectralParams, gst, powers: torch.Tensor):
+    """The per-hop gain recursion of `t41x.dsp.nr.spectral_nr_batch`'s
+    `lax.scan`, hop by hop (the plain version of S1).  gst: (xt, pslp,
+    hk_old (..., HOP), frames (...,) int32); powers: (n_hops, ..., HOP).
+    Returns ((xt', pslp', hk_old', frames + n_hops), gains (n_hops, ...,
+    HOP), initializing (n_hops, ..., 1) bool)."""
     gs, inits = [], []
     for pw in powers:
         gst, g, init = _spectral_gain(p, gst, pw)
@@ -390,14 +430,55 @@ def _spectral_gains(p: SpectralParams, st: SpectralState,
     return gst, torch.stack(gs, dim=0), torch.stack(inits, dim=0)
 
 
-def spectral_nr(p: SpectralParams, st: SpectralState, x: torch.Tensor):
+def nn_boundaries(p: SpectralParams) -> np.ndarray:
+    """The in-band power ratios at which the NN choice changes: where
+    width (1 - ratio / power_threshold) crosses k + 1/2 (the choice is 0
+    on both sides of power_threshold itself)."""
+    k = np.arange(min(int(p.width), 4))
+    return p.power_threshold * (1.0 - (k + 0.5) / p.width)
+
+
+def spectral_decision_margin(p: SpectralParams, gst, powers: torch.Tensor):
+    """The plain version's NN choices over the hops of `powers` from
+    state `gst` (as `spectral_gains_scan` takes them), and how near each
+    came to going the other way: |ratio - b| / b for the nearest
+    boundary b of `nn_boundaries`.  Returns (nn (n_hops, ...) int32,
+    margin (n_hops, ...) float32).  A version that sums the in-band
+    powers in another order may choose otherwise only where the margin
+    is of the order of float32 rounding."""
+    bounds = torch.as_tensor(nn_boundaries(p), dtype=torch.float32,
+                             device=powers.device)
+    in_band = _in_band(p.vad_low, p.vad_high, powers.device)
+    nns, margins = [], []
+    for pw in powers:
+        gst, _, _, ratio = _spectral_ratio(p, gst, pw, in_band)
+        nns.append(_nn_choice(p, ratio))
+        margins.append(((ratio[..., None] - bounds).abs() / bounds
+                        ).amin(dim=-1))
+    return torch.stack(nns, dim=0), torch.stack(margins, dim=0)
+
+
+def _spectral_gains(p: SpectralParams, st: SpectralState,
+                    powers: torch.Tensor, use_kernels: bool):
+    gst = (st.xt, st.pslp, st.hk_old, st.frames)
+    if use_kernels:
+        from t41x_torch.kernels.spectral_nr import spectral_gains
+        return spectral_gains(p, gst, powers)
+    return spectral_gains_scan(p, gst, powers)
+
+
+def spectral_nr(p: SpectralParams, st: SpectralState, x: torch.Tensor,
+                use_kernels: bool = False):
     """x: (..., 256) audio block.  Returns (state, y).  During the first
-    `init_frames` hops the audio passes through untouched."""
+    `init_frames` hops the audio passes through untouched.  With
+    `use_kernels`, CUDA tensors run both hops' gain recursion in one S1
+    launch."""
     window = _window(_sqrt_hann, x)
     frame0 = torch.cat([st.last_sample, x[..., :HOP]], dim=-1)
     frames = torch.stack([frame0 * window, x * window], dim=0)
     sr, si, powers = _half_spectra(frames)
-    (xt, pslp, hk_old, frames_n), gs, inits = _spectral_gains(p, st, powers)
+    (xt, pslp, hk_old, frames_n), gs, inits = _spectral_gains(
+        p, st, powers, use_kernels)
     outs = _mirror_inverse(sr, si, gs) * window
     a0 = outs[0][..., :HOP] + st.last_ifft
     a1 = outs[1][..., :HOP] + outs[0][..., HOP:]
@@ -409,14 +490,15 @@ def spectral_nr(p: SpectralParams, st: SpectralState, x: torch.Tensor):
 
 
 def spectral_nr_batch(p: SpectralParams, st: SpectralState,
-                      xs: torch.Tensor):
+                      xs: torch.Tensor, use_kernels: bool = False):
     """The batched form of B sequential `spectral_nr` calls (the
-    factorisation of `kim_nr_batch`).  xs: (B, ..., 256).  Returns
-    (state, (B, ..., 256))."""
+    factorisation of `kim_nr_batch`; one S1 launch over the 2B hops with
+    `use_kernels`).  xs: (B, ..., 256).  Returns (state, (B, ..., 256))."""
     window = _window(_sqrt_hann, xs)
     halves, frames = _hop_frames(st.last_sample, xs)
     sr, si, powers = _half_spectra(frames * window)
-    (xt, pslp, hk_old, frames_n), gs, inits = _spectral_gains(p, st, powers)
+    (xt, pslp, hk_old, frames_n), gs, inits = _spectral_gains(
+        p, st, powers, use_kernels)
     outs = _mirror_inverse(sr, si, gs) * window
     hops = _overlap_add(st.last_ifft, outs)
     hops = torch.where(inits, halves, hops)   # init phase: passthrough

@@ -16,6 +16,13 @@
   taken in another order), the output outside its own mask is the input
   bit for bit, and on frames with equal masks the audio is within the
   55 dB bound.
+* `nr_decisions` — spectral NR's per-hop gains and averaging-width (NN)
+  choices against the plain version's: a choice may differ only where
+  the plain version's power ratio lies within `NR_MARGIN_MAX` of an NN
+  boundary (its in-band sums taken in another order), and the gains of
+  every hop whose choice is equal lie within `NR_GAIN_RTOL` /
+  `NR_GAIN_ATOL` (the box filters' sums: direct against a cumulative
+  sum's differences, gains up to ~3).
 """
 
 from __future__ import annotations
@@ -26,6 +33,13 @@ AUDIO_SNR_MIN_DB = 55.0
 SPECTRUM_ERR_MAX_DB = 0.5
 PSD_ERR_MAX_DB = 3.0
 NB_MARGIN_MAX = 1e-4
+NR_MARGIN_MAX = 1e-4
+NR_GAIN_RTOL, NR_GAIN_ATOL = 1e-5, 3e-5
+# S1's carried state (xt, pslp, hk_old) against the plain version's: its
+# recursion is elementwise in torch's rounding
+NR_STATE_RTOL = 1e-5
+# E1 against the plain EQ on the card: both fp32, sums in other orders
+EQ_SNR_MIN_DB = 100.0
 
 
 def _np(a) -> np.ndarray:
@@ -96,4 +110,33 @@ def nb_decisions(x, y_k, mask_k, y_p, mask_p, margin_p, pl: int = 3) -> dict:
     }
     out["ok"] = (out["unexplained"] == 0 and out["passthrough_exact"]
                  and out["finite"] and out["snr_db"] >= AUDIO_SNR_MIN_DB)
+    return out
+
+
+def nr_decisions(g_k, nn_k, g_p, nn_p, margin_p) -> dict:
+    """Spectral NR gains g_k (n_hops, ..., 128) and NN choices nn_k
+    (n_hops, ...) of the version under test against the plain version's
+    g_p, nn_p and its margins margin_p
+    (`t41x_torch.dsp.nr.spectral_decision_margin`), torch tensors on one
+    device.  Returns the counts and `ok`: every differing choice has a
+    margin below NR_MARGIN_MAX, every gain is finite, and the gains of
+    the hops whose choices are equal are within NR_GAIN_RTOL and
+    NR_GAIN_ATOL of the plain version's."""
+    import torch
+
+    differ = nn_k != nn_p
+    same = ~differ
+    d = (g_k - g_p).abs()[same]
+    tol = NR_GAIN_ATOL + NR_GAIN_RTOL * g_p.abs()[same]
+    out = {
+        "hops": int(nn_p.numel()),
+        "near_boundary": int((margin_p < NR_MARGIN_MAX).sum()),
+        "choices_differ": int(differ.sum()),
+        "unexplained": int((differ & (margin_p >= NR_MARGIN_MAX)).sum()),
+        "gains_out_of_tolerance": int((d > tol).sum()),
+        "max_abs_err": float(d.max()) if d.numel() else 0.0,
+        "finite": bool(torch.isfinite(g_k).all()),
+    }
+    out["ok"] = (out["unexplained"] == 0 and out["finite"]
+                 and out["gains_out_of_tolerance"] == 0)
     return out

@@ -197,8 +197,9 @@ def test_jittered_sources_spin_after_every_barrier():
     """kernel_sanitize.py's race check builds every source with a spin
     after each block and cluster barrier and each call of a named-barrier
     helper (C1's four: its two roles' waits and arrivals), and a lane's
-    own spin after each call of N1's warp barrier helper (its four
-    `warp_sync()` between a frame's phases)."""
+    own spin after each call of N1's and E1's warp barrier helper (N1's
+    four `warp_sync()` between a frame's phases, E1's three around a
+    chunk's shared arrays)."""
     import re
 
     import kernel_sanitize
@@ -222,7 +223,7 @@ def test_jittered_sources_spin_after_every_barrier():
         total += sites
         named += calls
         lanes += warp
-    assert named == 4 and lanes == 4
+    assert named == 4 and lanes == 4 + 3
     assert total >= 30
 
 
@@ -237,7 +238,7 @@ def test_chip_scripts_never_import_jax():
         "import chip_smoke, kernel_ab, kernel_sanitize, kernel_study\n"
         "g = torch.Generator().manual_seed(0)\n"
         "rows = kernel_sanitize.kernel_rows(torch.device('cpu'), 3, g)\n"
-        "assert len(rows) == 19, len(rows)\n"  # K1-K8, C1 and N1
+        "assert len(rows) == 23, len(rows)\n"  # K1-K8, C1, N1, S1, E1
         "bad = [m for m in sys.modules if m == 't41x' or "
         "m.startswith(('t41x.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n")
