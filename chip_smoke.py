@@ -57,8 +57,8 @@ failure):
    elsewhere (`parity.nr_decisions`), its states within 1e-5 relative
    (bit for bit counted) and its init flags equal, E1 >= 100 dB from its
    plain version (output and state, every block), and the `clock64`
-   split per phase of K2, K3, K5, K6, K7 and N1 (cold and warm) goes to
-   the log.  Each kernel's bound is the larger of the operations its
+   split per phase of K2, K3, K5, K6, K7, N1, S1 (at 2 and 16 hops) and
+   E1 (at every channel and at one; cold and warm) goes to the log.  Each kernel's bound is the larger of the operations its
    function needs over the card's fp32 peak (67 TFLOP/s) and its bytes
    (each input read once, each output written once) over its memory
    rate (3.35 TB/s);
@@ -2661,6 +2661,13 @@ def main(argv: list[str]) -> int:
                 f"{parity.NR_GAIN_RTOL}, atol {parity.NR_GAIN_ATOL}",
                 OPS_PER_ELEMENT["S1"] * pw.numel(), (pw, g_row),
                 kspec.spectral_gains(spp, g_row, pw))
+            # where a channel's time goes, and the recursion's cycles a
+            # hop (trees before the stamped variant have none)
+            if hasattr(kspec, "spectral_gains_phases"):
+                log_phases(f"S1 {hops} hops",
+                           lambda: kspec.spectral_gains_phases(spp, g_row,
+                                                               pw)[3],
+                           kspec.S1_PHASES, card, "recursion", hops)
 
     # E1: audio at every channel's level of its own (noise and tones at
     # three band centres), per-channel gains with one band at 0, from a
@@ -2710,6 +2717,10 @@ def main(argv: list[str]) -> int:
                 lambda: eqd.apply_plain(s_k, x0, gains), err,
                 f"{parity.EQ_SNR_MIN_DB} dB ({worst:.1f})", e1_flops(x0),
                 (x0, s_k, gains), eqd.apply(s_k, x0, gains, use_kernels=True))
+            if hasattr(keq, "eq_phases"):
+                log_phases(f"E1 {ch} x {C.AUDIO_BLOCK}",
+                           lambda: keq.eq_phases(eqd, s_k, x0, gains)[2],
+                           keq.E1_PHASES, card, n_ch=ch)
 
     def profile(name, blk, pr):
         """Where the time goes on spec `name`: device time per block of

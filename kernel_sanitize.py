@@ -13,7 +13,7 @@ q15, K1z at zoom 1, 3 and 7 and zoom 1 in q15, K2, K3 on a contiguous
 row and on the real part of a complex64 row, K4, K5, K6, K7 in NR and
 notch form, K8, C1, the transmit chain's compressor of phase 6, N1,
 the noise blanker, S1, spectral NR's gains at 2 and 16 hops, and E1,
-the EQ, at every channel and at one),
+the EQ, at every channel, at one, and over 2048 samples: 8 passes),
 each twice on the same inputs, and fails unless the two
 runs agree bit for bit: a race that changes what a kernel computes
 shows there.  No profiler and no plain versions, so that the form is
@@ -38,10 +38,11 @@ after each `__syncthreads()` and `cluster.sync()` and after each wait
 at or arrival on a named barrier (`named_bar_sync`, `named_bar_arrive`:
 C1's two warp roles meet there), spins for 0-2047 cycles chosen by its
 block, its warp and the call site, and every lane, after each
-`warp_sync()` (N1's lanes exchange a frame's arrays, E1's a chunk's
-input and states, through shared memory there), for 0-2047 cycles chosen by its block, warp, lane and
-the call site; and holds every row of the first form, at 7, 33 and
-1024 channels, against the normal library bit for bit.  A phase that
+`warp_sync()` (N1's lanes exchange a frame's arrays there), for 0-2047
+cycles chosen by its block, warp, lane and the call site (S1 has no
+site: no shared memory, its lanes meet only in shuffles); and holds
+every row of the first form, at 7, 33 and 1024 channels, against the
+normal library bit for bit.  A phase that
 reads what another warp (or lane) writes without a barrier between
 them, or overwrites what a slower one still reads, gives another
 result once their order is shuffled: a race check that needs no
@@ -66,8 +67,7 @@ JITTER_CHANNELS = (7, 33, 1024)
 # a call of a kernel's named-barrier helpers (C1's warp roles meet at
 # `named_bar_sync(id)` and `named_bar_arrive(id)`), not their definitions
 NAMED_BARRIER = re.compile(r"\b(named_bar_(?:sync|arrive)\([^;(){}]*\));")
-# a call of N1's or E1's warp barrier helper (`warp_sync()`), not its
-# definition
+# a call of N1's warp barrier helper (`warp_sync()`), not its definition
 WARP_SYNC = re.compile(r"\bwarp_sync\(\);")
 # the spin the jittered build puts after every block or cluster barrier
 # and every named-barrier wait or arrival
@@ -241,6 +241,9 @@ def kernel_rows(dev, ch: int, gen):
     rows.append(("E1 eq", lambda: eqd.apply(se, xe, ge, use_kernels=True)))
     rows.append(("E1 eq 1 channel",
                  lambda: eqd.apply(se[0], xe[0], ge[0], use_kernels=True)))
+    xl = randn(ch, 8 * C.AUDIO_BLOCK, scale=0.3)
+    rows.append(("E1 eq 2048",
+                 lambda: eqd.apply(se, xl, ge, use_kernels=True)))
     return rows
 
 

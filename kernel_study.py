@@ -6,6 +6,7 @@ split of the original K3, and variants of K3's thread shape.
     python3 kernel_study.py k3-split                 (needs a card)
     python3 kernel_study.py k3-variants ROOT         (needs a card)
     python3 kernel_study.py profiler-loss            (needs a card)
+    python3 kernel_study.py e1-s1 ROOT               (needs a card)
 
 `sass` compiles each CUDA source with the flags of
 `t41x_torch/kernels/_build.py` and prints, for every kernel in it, its
@@ -25,6 +26,16 @@ L2 flushed before each launch, in three rounds of alternating order, on
 the chain's input (the real part of a complex64 block), with an empty
 kernel's time for the events' own overhead.  Every variant is first
 held against the plain version bit for bit.
+
+`e1-s1` builds ROOT's kernels (printing ptxas' registers and spills)
+and runs ROOT's E1 at 1024 x 256 and 1 x 256 from a random state, and
+S1 at 2 and 16 hops at 1024 channels on audio like `chip_smoke.py`
+phase 2's (noise at a level of each channel's own, a keyed 700 Hz tone,
+every 8th channel silent) past 12 blocks of history: each against its
+plain version (E1's SNR; S1's NN choices by `parity.nr_decisions`, its
+states bit for bit), its stamped variant against it bit for bit, its
+device µs (L2 flushed) and its `clock64` split cold and warm, where
+ROOT's wrappers have a stamped variant.
 
 `profiler-loss` runs the whole `chip_smoke.py` and, after each of its
 profiler measurements, profiles the same calls once more without the
@@ -353,12 +364,93 @@ def profiler_loss() -> int:
     return cs.main([])
 
 
+def e1_s1() -> int:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from t41x_torch.dsp import eq as teq, nr as tnr
+    from t41x_torch.kernels import _build, eq as keq, spectral_nr as kspec
+    from t41x_torch.utils import parity
+
+    card = card_line()
+    print(f"# e1-s1: {Path(keq.__file__).parents[2]} ({card})", flush=True)
+    _build.library(verbose=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    d = teq.EQDesign()
+    for ch in (1024, 1):
+        lead = (ch,) if ch > 1 else ()
+        x = torch.randn(lead + (256,), generator=g, device=dev)
+        gains = torch.rand(lead + (14,), generator=g, device=dev)
+        st = 0.1 * torch.randn(lead + (14, 2, 2), generator=g, device=dev)
+        k = d.apply(st, x, gains, use_kernels=True)
+        p = d.apply_plain(st, x, gains)
+        torch.cuda.synchronize()
+        print(f"# E1 {ch} x 256 vs plain {parity.snr_db(p[1], k[1]):.1f} dB "
+              f"(output), {parity.snr_db(p[0], k[0]):.1f} dB (state); "
+              f"device {cs.device_us(lambda: d.apply(st, x, gains, True), 'eq'):.2f}"
+              f" us ({card})", flush=True)
+        if hasattr(keq, "eq_phases"):
+            s = keq.eq_phases(d, st, x, gains)
+            print(f"# E1 {ch}: stamped bit for bit "
+                  f"{torch.equal(k[0], s[0]) and torch.equal(k[1], s[1])}")
+            cs.log_phases(f"E1 {ch} x 256",
+                          lambda: keq.eq_phases(d, st, x, gains)[2],
+                          keq.E1_PHASES, card, n_ch=ch)
+    p = tnr.spectral_params(200.0, 3000.0)
+    ch, n_blk = 1024, 20
+    t = torch.arange(n_blk * 256, device=dev) / 24000.0
+    lvl = 10.0 ** (3.0 * torch.rand(ch, 1, generator=g, device=dev) - 3.0)
+    keyed = (torch.rand(ch, n_blk, generator=g, device=dev) < 0.5
+             ).repeat_interleave(256, dim=-1)
+    amp = lvl * torch.tensor([0.0, 1.0, 10.0, 100.0], device=dev)[
+        torch.randint(0, 4, (ch, 1), generator=g, device=dev)]
+    aud = lvl * torch.randn(ch, t.numel(), generator=g, device=dev) \
+        + amp * keyed * torch.sin(2 * np.pi * 700.0 * t)
+    aud[4::8] = 0.0
+    aud = aud.reshape(ch, n_blk, 256).movedim(1, 0)
+    sst = tnr.spectral_state((ch,), dev)
+    window = tnr._window(tnr._sqrt_hann, aud)
+    _, frames = tnr._hop_frames(sst.last_sample, aud[:12])
+    gst = kspec.spectral_gains_plain(
+        p, (sst.xt, sst.pslp, sst.hk_old, sst.frames),
+        tnr._half_spectra(frames * window)[2])[0]
+    for hops in (2, 16):
+        _, frames = tnr._hop_frames(aud[11, ..., 128:],
+                                    aud[12: 12 + hops // 2])
+        pw = tnr._half_spectra(frames * window)[2].contiguous()
+        nn_k = torch.empty(pw.shape[:-1], dtype=torch.int32, device=dev)
+        k = kspec.spectral_gains(p, gst, pw, nn_k)
+        nn_p, margin = tnr.spectral_decision_margin(p, gst, pw)
+        pl = kspec.spectral_gains_plain(p, gst, pw)
+        torch.cuda.synchronize()
+        rep = parity.nr_decisions(k[1], nn_k, pl[1], nn_p, margin)
+        exact = all(torch.equal(a, b) for a, b in zip(k[0], pl[0]))
+        us = cs.device_us(lambda: kspec.spectral_gains(p, gst, pw),
+                          "spectral")
+        print(f"# S1 {hops} hops: {rep}; states bit for bit {exact}; "
+              f"device {us:.2f} us ({card})", flush=True)
+        if hasattr(kspec, "spectral_gains_phases"):
+            s = kspec.spectral_gains_phases(p, gst, pw)
+            same = all(torch.equal(a, b) for a, b in zip(
+                (*k[0], k[1], k[2]), (*s[0], s[1], s[2])))
+            print(f"# S1 {hops}: stamped bit for bit {same}")
+            cs.log_phases(f"S1 {hops} hops",
+                          lambda: kspec.spectral_gains_phases(p, gst, pw)[3],
+                          kspec.S1_PHASES, card, "recursion", hops, n_ch=ch)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, str(HERE))
+    if len(argv) == 2 and argv[0] == "e1-s1":   # ROOT's t41x_torch first
+        sys.path.insert(0, str(Path(argv[1]).resolve()))
     if len(argv) >= 2 and argv[0] == "sass":
         return sass(argv[1:])
     if argv not in (["k3-split"], ["profiler-loss"]) and not (
-            len(argv) == 2 and argv[0] == "k3-variants"):
+            len(argv) == 2 and argv[0] in ("k3-variants", "e1-s1")):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -368,6 +460,8 @@ def main(argv: list[str]) -> int:
         return 2
     if argv[0] == "profiler-loss":
         return profiler_loss()
+    if argv[0] == "e1-s1":
+        return e1_s1()
     return k3_split() if argv[0] == "k3-split" else k3_variants(argv[1])
 
 

@@ -143,6 +143,13 @@ def cuda_input(name: str, t, dtype, shape: tuple, device):
     return t.contiguous()
 
 
+def aligned(t, nbytes: int = 16):
+    """`t`, or a copy of it where its data do not start on an `nbytes`
+    boundary (a contiguous view at an odd offset): for a kernel that
+    reads it as 16-byte vectors."""
+    return t.clone() if t.data_ptr() % nbytes else t
+
+
 def stamp_buffer(channels: int, per_block: int, rows: int, device):
     """A zeroed (blocks, rows) int64 buffer for a kernel's `clock64`
     stamps: one row a thread block of `per_block` channels."""

@@ -128,8 +128,9 @@ def _launch_calls():
 def test_every_launch_site_passes_its_device():
     sites = _launch_calls()
     # agc (K2, K5), compressor, eq, frontend, interp, nb, nr_gain,
-    # os_filter, sam (K6, its loop ops), spectral_nr, xanr
-    assert len(sites) == 13, [(f, ln) for f, ln, _ in sites]
+    # os_filter, sam (K6, its loop ops), spectral_nr (S1, its arithmetic
+    # probe for the card tests), xanr
+    assert len(sites) == 14, [(f, ln) for f, ln, _ in sites]
     for f, line, call in sites:
         where = f"{f}:{line}"
         assert len(call.args) >= 3, where

@@ -172,3 +172,47 @@ def test_wrapper_refuses_on_the_card(cuda):
     with pytest.raises(ValueError):
         DESIGN.apply(st, torch.zeros(3, 256, device=cuda),
                      torch.ones(3, 13, device=cuda), use_kernels=True)
+
+
+@pytest.mark.parametrize("ch", [1, 9, 130])
+@pytest.mark.parametrize("n", [32, 288, 2048])
+def test_e1_in_a_cuda_graph_at_ragged_shapes(cuda, ch, n):
+    """Channel counts off the kernel's 8 a block, block lengths off its
+    8-chunk passes, replayed from a graph against the eager launch."""
+    rng = np.random.default_rng(ch * 3 + n)
+    x = torch.from_numpy(eq_audio(rng, (ch,), n, 1)[0]).to(cuda)
+    gains = torch.from_numpy(eq_gains(rng, (ch,))).to(cuda)
+    st = torch.from_numpy(eq_state(rng, (ch,))).to(cuda)
+    eager = DESIGN.apply(st, x, gains, use_kernels=True)
+    plain = DESIGN.apply_plain(st, x, gains)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = DESIGN.apply(st, x, gains, use_kernels=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, p in zip(eager, captured, plain):
+        assert torch.equal(a, b)
+        assert parity.snr_db(p, a) >= parity.EQ_SNR_MIN_DB
+
+
+@pytest.mark.parametrize("ch", [1, 7, 1024])
+@pytest.mark.parametrize("n", [32, 256, 2048])
+def test_e1_phases_variant_is_the_kernel(cuda, ch, n):
+    """`eq_phases` (the clock64-stamped build) gives the unstamped
+    kernel's output and state bit for bit, and a stamps row a block of
+    4 channels (a channel at up to 132) with every phase and the total
+    counted."""
+    rng = np.random.default_rng(ch + 11 * n)
+    lead = (ch,) if ch > 1 else ()
+    x = torch.from_numpy(eq_audio(rng, lead, n, 1)[0]).to(cuda)
+    gains = torch.from_numpy(eq_gains(rng, lead)).to(cuda)
+    st = torch.from_numpy(eq_state(rng, lead)).to(cuda)
+    want = DESIGN.apply(st, x, gains, use_kernels=True)
+    st_s, y_s, stamps = keq.eq_phases(DESIGN, st, x, gains)
+    torch.cuda.synchronize()
+    assert torch.equal(want[0], st_s) and torch.equal(want[1], y_s)
+    blocks = ch if ch <= keq.FEW else -(-ch // keq.MANY_PER_BLOCK)
+    assert stamps.shape == (blocks, len(keq.E1_PHASES) + 2)
+    assert bool((stamps[:, 0] > 0).all() and (stamps[:, -2:] > 0).all())
+    assert bool((stamps[:, :-2].sum(1) <= stamps[:, -2]).all())

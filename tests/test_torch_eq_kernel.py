@@ -109,16 +109,24 @@ def test_tx_eq_matches_t41x():
     _close(ts.eq.numpy(), js.eq, "eq state")
 
 
+def _consts(kc):
+    """kernel_consts' parts: h (14, K), R (K, 56), G (56, K), AK (56, 4),
+    signs (14,)."""
+    K, NS, B = TE.chunk, 56, teq.NUM_BANDS
+    h, o = kc[:B * K].reshape(B, K), B * K
+    R, o = kc[o:o + K * NS].reshape(K, NS), o + K * NS
+    G, o = kc[o:o + NS * K].reshape(NS, K), o + NS * K
+    AK, o = kc[o:o + NS * 4].reshape(NS, 4), o + NS * 4
+    return h, R, G, AK, kc[o:]
+
+
 def test_kernel_consts_rebuild_the_chunk_operators_bit_for_bit():
     K, NS, B = TE.chunk, 56, teq.NUM_BANDS
     kc = TE.kernel_consts
     assert kc.dtype == np.float32 and kc.size == B * K + 2 * K * NS \
         + NS * 4 + B
-    h, o = kc[:B * K].reshape(B, K), B * K
-    R, o = kc[o:o + K * NS].reshape(K, NS), o + K * NS
-    G, o = kc[o:o + NS * K].reshape(NS, K), o + NS * K
-    AK, o = kc[o:o + NS * 4].reshape(NS, 4), o + NS * 4
-    np.testing.assert_array_equal(kc[o:], teq._SIGNS)
+    h, R, G, AK, signs = _consts(kc)
+    np.testing.assert_array_equal(signs, teq._SIGNS)
     Wy, Ws = np.zeros_like(TE.Wy), np.zeros_like(TE.Ws)
     k, j = np.meshgrid(np.arange(K), np.arange(K), indexing="ij")
     for b in range(B):
@@ -135,6 +143,73 @@ def test_kernel_consts_rebuild_the_chunk_operators_bit_for_bit():
     np.testing.assert_array_equal(TE.Ws, JE.Ws)
 
 
+def e1_three_passes(kc, state, x, gains, seg=8):
+    """E1's arithmetic in float32 numpy from `kernel_consts` alone, pass
+    by pass as csrc/eq.cu runs it on passes of up to `seg` chunks: (a)
+    u_q = G^T x_q for every chunk at once, four samples a step; (b) the
+    4 x 4 scan a band s_{q+1} = AK s_q + u_q, leaving g s_q; (c) y_q =
+    he * x_q + R (g s_q) for every chunk at once, the causal part read as
+    the kernel reads it: output sample k takes taps j = 4 j4 .. 4 j4 + 3
+    as one 16-byte read of copy r = (k + 1) % 4 of [K zeros | he | 0]
+    (copy r at i holding element i + r) at K + k - 3 - r - 4 j4, reversed.
+    state (C, 14, 2, 2), x (C, n), gains (C, 14).  Returns (state, y)."""
+    f32 = np.float32
+    h, R, G, AK, signs = _consts(kc)
+    K, B, NS = h.shape[1], h.shape[0], R.shape[1]
+    C, n = x.shape
+    sc = (signs * gains).astype(f32)                       # (C, 14)
+    he = np.zeros((C, K), f32)
+    for b in range(B):
+        he = (sc[:, b:b + 1] * h[b] + he).astype(f32)
+    hz = np.zeros((C, 3 * K), f32)
+    hz[:, K:2 * K] = he
+    copies = np.stack([hz[:, r:r + 2 * K] for r in range(4)], 1)
+    k = np.arange(K)
+    rk = (k + 1) % 4
+    scale = np.repeat(sc, 4, axis=1)                       # (C, 56)
+    akb = AK.reshape(B, 4, 4)
+    s = state.reshape(C, NS).astype(f32)
+    ys = []
+    for q0 in range(0, n // K, seg):
+        xq = x[:, q0 * K:(q0 + seg) * K].reshape(C, -1, K)
+        u = np.zeros(xq.shape[:2] + (NS,), f32)            # (a)
+        for j4 in range(K // 4):
+            u += xq[..., 4 * j4:4 * j4 + 4] @ G[:, 4 * j4:4 * j4 + 4].T
+        gs = np.zeros(u.shape, f32)
+        for q in range(xq.shape[1]):                       # (b)
+            gs[:, q] = scale * s
+            s = (u[:, q].reshape(C, B, 4) + np.einsum(
+                "bik,cbk->cbi", akb, s.reshape(C, B, 4))).reshape(C, NS)
+        y = np.zeros(xq.shape, f32)                        # (c)
+        for j4 in range(K // 4):
+            a = K + k - 3 - rk - 4 * j4                    # (K,)
+            hv = copies[:, rk[:, None], a[:, None] + np.arange(4)]
+            taps = hv[..., ::-1]                           # (C, K, 4)
+            y += np.einsum("ckt,cqt->cqk", taps,
+                           xq[..., 4 * j4:4 * j4 + 4])
+        y += gs @ R.T
+        ys.append(y.reshape(C, -1))
+    return s.reshape(state.shape), np.concatenate(ys, -1)
+
+
+@pytest.mark.parametrize("ch", [1, 7])
+@pytest.mark.parametrize("n", [32, 256, 2048])
+def test_three_pass_model_matches_t41x(ch, n):
+    """E1's three-pass arithmetic (`e1_three_passes`, built from
+    `kernel_consts` alone) against t41x's `EQDesign.apply` over 3 blocks
+    from a random state: output and state >= 120 dB."""
+    rng = np.random.default_rng(5 * ch + n)
+    xs = eq_audio(rng, (ch,), n, 3)
+    gains = eq_gains(rng, (ch,))
+    st = eq_state(rng, (ch,))
+    js = jnp.asarray(st)
+    for b in range(3):
+        js, jy = JE.apply(js, jnp.asarray(xs[b]), jnp.asarray(gains))
+        st, y = e1_three_passes(TE.kernel_consts, st, xs[b], gains)
+        assert parity.snr_db(np.asarray(jy), y) >= 120.0, b
+        assert parity.snr_db(np.asarray(js), st) >= 120.0, b
+
+
 def test_kernel_source_agrees_with_the_wrapper():
     import re
     src = (_build.SRC_DIR / "eq.cu").read_text()
@@ -144,9 +219,14 @@ def test_kernel_source_agrees_with_the_wrapper():
 
     assert const("BANDS") == teq.NUM_BANDS and const("K") == keq.CHUNK
     assert const("NS") == teq.NUM_BANDS * 2 * keq.STAGES
+    assert const("FEW") == keq.FEW
+    assert const("WARPS") // const("W_MANY") == keq.MANY_PER_BLOCK
+    assert const("N_PHASES") == len(keq.E1_PHASES)
     assert TE.chunk == keq.CHUNK and TE.stages == keq.STAGES
-    # the C entry point's parameters, and the stream
-    assert len(keq._ARGS) == 10
+    # the C entry points' parameters, and the stream
+    assert 'extern "C" int t41x_eq(' in src
+    assert 'extern "C" int t41x_eq_phases(' in src
+    assert len(keq._ARGS) == 10 and len(keq._PHASE_ARGS) == 11
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
@@ -236,3 +316,25 @@ def test_wrapper_layout_and_refusals(fake_library):
     keq._launch(TE, TE.init_state((0,)), torch.zeros(0, 256),
                 torch.ones(0, 14))
     assert len(calls) == 4
+
+
+def test_phases_wrapper_and_alignment(fake_library):
+    """`eq_phases` passes a stamps buffer of a row a thread block (a
+    channel each up to 132 channels, 4 each above) before the stream; a
+    contiguous view at an offset that is not a multiple of 16 bytes goes
+    in as an aligned copy."""
+    calls = fake_library
+    for ch, rows in ((9, 9), (132, 132), (133, 34)):
+        st = TE.init_state((ch,))
+        x = torch.zeros(ch, 256)
+        g = torch.ones(ch, 14)
+        st_o, y, stamps = keq.eq_phases(TE, st, x, g)
+        name, args = calls[-1]
+        assert name == "t41x_eq_phases" and args[-1] == 0xBEEF
+        assert args[-2] == stamps.data_ptr()
+        assert stamps.shape == (rows, len(keq.E1_PHASES) + 2)
+        assert stamps.dtype == torch.int64
+    buf = torch.zeros(1 + 256)
+    keq._launch(TE, TE.init_state(()), buf[1:], torch.ones(14))
+    passed = calls[-1][1][0]
+    assert passed != buf[1:].data_ptr() and passed % 16 == 0

@@ -195,3 +195,84 @@ def test_wrapper_refuses_on_the_card(cuda):
     with pytest.raises(ValueError):
         kspec.spectral_gains(p, g, torch.rand(2, 3, tnr.HOP, device=cuda),
                              torch.empty(2, 3, device=cuda))
+
+
+@pytest.mark.parametrize("ch", [1, 7, 130, 1024])
+@pytest.mark.parametrize("hops", [1, 2, 3, 16, 17])
+def test_s1_at_hop_counts_ragged_against_the_prefetch(cuda, ch, hops):
+    """Hop counts on and off the kernel's 4-hop prefetch ring, from this
+    file's stimuli past the init phase (and, for channel 0 mod 8,
+    crossing it): the choices, gains and states as in
+    `test_s1_against_the_plain_recursion`, the states bit for bit."""
+    p = tnr.spectral_params(200.0, 3000.0)
+    blocks = 12 + -(-hops // 2)
+    xs = torch.from_numpy(nr_audio(np.random.default_rng(ch * 5 + hops),
+                                   (ch,), blocks)).to(cuda)
+    st = tnr.spectral_state((ch,), cuda)
+    powers, _ = hop_powers(st.last_sample, xs)
+    g = kspec.spectral_gains_plain(p, _gst(st), powers[:19])[0]
+    pw = powers[19: 19 + hops].contiguous()
+    nn_k = torch.empty(pw.shape[:-1], dtype=torch.int32, device=cuda)
+    g_k, gains_k, init_k = kspec.spectral_gains(p, g, pw, nn_k)
+    nn_p, margin = tnr.spectral_decision_margin(p, g, pw)
+    g_p, gains_p, init_p = kspec.spectral_gains_plain(p, g, pw)
+    rep = parity.nr_decisions(gains_k, nn_k, gains_p, nn_p, margin)
+    assert rep["ok"], rep
+    assert torch.equal(init_k, init_p) and bool(init_k[0].all())
+    for a, r in zip(g_k, g_p):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("ch", [1, 7, 1024])
+@pytest.mark.parametrize("hops", [1, 2, 17])
+def test_s1_phases_variant_is_the_kernel(cuda, ch, hops):
+    """`spectral_gains_phases` (the clock64-stamped build) gives the
+    unstamped kernel's states, gains and flags bit for bit, and a
+    stamps row a channel with every phase and the total counted."""
+    p = tnr.spectral_params(200.0, 3000.0)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(ch + hops)
+    st = tnr.spectral_state((ch,), cuda)._replace(
+        frames=torch.full((ch,), 18, dtype=torch.int32, device=cuda))
+    g = (torch.rand(ch, tnr.HOP, generator=gen, device=cuda) + 0.1,
+         torch.rand(ch, tnr.HOP, generator=gen, device=cuda), st.hk_old,
+         st.frames)
+    pw = torch.rand(hops, ch, tnr.HOP, generator=gen, device=cuda) ** 4 * 3
+    want = kspec.spectral_gains(p, g, pw)
+    *got, stamps = kspec.spectral_gains_phases(p, g, pw)
+    torch.cuda.synchronize()
+    for a, b in zip((*want[0], want[1], want[2]),
+                    (*got[0], got[1], got[2])):
+        assert torch.equal(a, b)
+    assert stamps.shape == (ch, len(kspec.S1_PHASES) + 2)
+    assert bool((stamps[:, 1] > 0).all() and (stamps[:, -2:] > 0).all())
+    assert bool((stamps[:, :-2].sum(1) <= stamps[:, -2]).all())
+
+
+def test_s1_division_and_square_root_are_ieee(cuda):
+    """S1's branch-free division and square root (`kernels.spectral_nr.
+    arith_probe`) against torch's on 2^24 pairs, bit for bit: log-uniform
+    magnitudes over 2^-140 .. 2^120 (past the fast forms' range on both
+    sides, into denormals), zeros of both signs, the divisor positive."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(15)
+    n = 1 << 24
+
+    def spread(sign):
+        e = torch.rand(n, generator=gen, device=cuda) * 260.0 - 140.0
+        m = 1.0 + torch.rand(n, generator=gen, device=cuda)
+        v = (m.double() * torch.exp2(e.double().floor())).float()
+        if sign:
+            v = torch.where(torch.rand(n, generator=gen, device=cuda) < 0.5,
+                            -v, v)
+        return v
+
+    a, b = spread(True), spread(False)
+    a[::97] = 0.0
+    a[1::97] = -0.0
+    b = torch.where(b > 0, b, torch.full_like(b, 1.5))
+    q, r = kspec.arith_probe(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(q.view(torch.int32), (a / b).view(torch.int32))
+    assert torch.equal(r.view(torch.int32),
+                       torch.sqrt(a.abs()).view(torch.int32))

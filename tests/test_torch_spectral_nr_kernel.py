@@ -383,9 +383,48 @@ def test_wrapper_layout_and_refusals(fake_library):
 
 
 def test_kernel_source_agrees_with_the_wrapper():
+    import re
     src = (_build.SRC_DIR / "spectral_nr.cu").read_text()
-    assert "constexpr int HOP = 128;" in src and tnr.HOP == 128
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("HOP") == tnr.HOP == 128
+    # four bins a lane: a warp a channel
+    assert const("BPL") * 32 == tnr.HOP
+    assert const("N_PHASES") == len(kspec.S1_PHASES)
     assert "fparams[15 + i]" in src and len(tnr.spectral_consts(P)) == 19
     assert "extern \"C\" int t41x_spectral_gains(" in src
-    # one argument type a C parameter: 18 and the stream
-    assert len(kspec._ARGS) == 19
+    assert "extern \"C\" int t41x_spectral_gains_phases(" in src
+    # one argument type a C parameter: 18 and the stream; the stamped
+    # variant's stamps before the stream
+    assert len(kspec._ARGS) == 19 and len(kspec._PHASE_ARGS) == 20
+    # no block barrier and no shared memory: the warp agrees on NN by a
+    # butterfly of shuffles
+    assert "__syncthreads" not in src and "__shared__" not in src
+    assert "__shfl_xor_sync" in src
+
+
+def test_phases_wrapper_and_alignment(fake_library):
+    """`spectral_gains_phases` passes a stamps buffer of a row a channel
+    before the stream, and no NN buffer; a state plane that is a view at
+    an offset that is not a multiple of 16 bytes goes in as an aligned
+    copy."""
+    calls = fake_library
+    lead, hops = (5,), 3
+    st = tnr.spectral_state(lead)
+    gst = (st.xt, st.pslp, st.hk_old, st.frames)
+    powers = torch.rand((hops,) + lead + (tnr.HOP,))
+    *outs, stamps = kspec.spectral_gains_phases(P, gst, powers)
+    (name, args), = calls
+    assert name == "t41x_spectral_gains_phases"
+    assert args[17] is None and args[18] == stamps.data_ptr()
+    assert args[19] == 0xBEEF
+    assert stamps.shape == (5, len(kspec.S1_PHASES) + 2)
+    assert stamps.dtype == torch.int64
+    buf = torch.rand(1 + 5 * tnr.HOP)
+    xt = buf[1:].view(lead + (tnr.HOP,))
+    kspec._launch(P, (xt,) + gst[1:], powers, None)
+    passed = calls[-1][1][1]
+    assert passed != xt.data_ptr() and passed % 16 == 0
+    assert calls[-1][1][2] == st.pslp.data_ptr()
