@@ -32,7 +32,8 @@ failure):
    zoom 2^z variant K1z (zoom 1, 3, 7 complex64, zoom 1 q15), K2 the
    AGC block, K3 the output interpolation, K4 the overlap-save matmul,
    K5 the AGC recurrence of 64-sample blocks, K6 the SAM PLL, K7 the LMS
-   in NR and notch form, K8 the Kim NR gains, N1 the noise blanker, S1
+   in NR and notch form, K8 the Kim NR gains, N1 the noise blanker (on
+   sparse impulses and on crowded impulse noise, its slow path), S1
    spectral NR's gain recursion at 2 and 16 hops a launch over 128 hops
    from the initial state, E1 the 14-band EQ at 1024 channels and at
    one over 16 blocks (N1, S1 and E1 have no TPU counterpart: t41x runs
@@ -74,8 +75,10 @@ failure):
    pieces, K5).  Each path's kernel launches are counted in its run
    (every count is set to 0 just before it), and its outputs are held
    against the same path with plain versions on the card (the noise
-   blanker's decisions counted, and its eager block's wall, with N1 and
-   with the plain loop, logged): audio >= 55 dB SNR and displayed
+   blanker's decisions counted, N1's against the plain blanker's on the
+   kernel path's own blanker input by `parity.nb_decisions`, and its
+   eager block's wall, with N1 and with the plain loop, logged): audio
+   >= 55 dB SNR and displayed
    spectrum <= 0.5 dB, or, for the adaptive stages
    (SAM PLL, LMS, notch), the audio power spectrum of the last 2 blocks
    within 3 dB and SAM's carrier within 0.1 Hz; CW keying equal; plus
@@ -99,7 +102,9 @@ failure):
    wrapper launched; (e) ms a
    block and the device's idle share over 64 blocks for the default
    spec and sam: the graphed runner, the eager runner and the bare
-   `RxChain.block` loop; (f) a mono runner fed by `CaptureStreamer` at
+   `RxChain.block` loop; and the graphed runner on the default spec with
+   the noise blanker on (N1 in the graph), against the 10.667 ms budget;
+   (f) a mono runner fed by `CaptureStreamer` at
    real time for 3 s with no overrun; (g) `python -m t41x_torch.cli rx`
    in a subprocess against `Radio.receive`, and `cli info`;
 6. drive the transmit chains and the decoders (`tx_decoders`): (a) C1,
@@ -156,7 +161,8 @@ failure):
    `stagebench`'s 32 variants at 1024 channels and --min-ms 50, plus a
    noise-blanker row and the FFT overlap-save filter with the kernels,
    none failing, each kernel variant launching its kernels and each
-   plain one none; (c)
+   plain one none, and the noise blanker's add over `pallas` with its
+   spread over NB_ADD_ROUNDS rounds of the two in turns; (c)
    `ft8_sensitivity` clean and fading at -20 to -10 dB, 10 trials a
    cell, on the card, every probability within 0.2 of FT8_SENS.json's
    and the clean 50% threshold within 1 dB of its.
@@ -366,6 +372,66 @@ def n1_flops(x, mask) -> int:
     frames = x.numel() // x.shape[-1]
     return (OPS_PER_ELEMENT["N1"] * x.numel() + N1_OPS_PER_FRAME * frames
             + N1_OPS_PER_BLANKED * int(mask.sum()))
+
+
+def nb_stimulus(kind: str, frames: int, n: int, gen, dev):
+    """N1's audio frames (frames, n) at 24 kHz on `dev`, drawn from `gen`.
+    tone: a 600 Hz tone in light noise with 1-3 impulses a frame,
+    impulses at the hit guard's edges (13 and n - 15) in every 64th frame
+    and the next, every 16th frame from the 8th silent.  crowded: impulse
+    noise over most of the blankable range [10, n - 11) by turns of four
+    frames, as `tests/test_torch_nb_gpu.py` `nb_frames` makes it: a
+    +8, +8, -8, -8 train at most 7 samples apart over the whole guard in
+    light noise (one run over [10, n - 11)); the tone with random-sign
+    impulses of 3 every 7 samples (long runs) and every 8 (runs of 7 one
+    unset sample apart: one dependent group); bursts of impulses of 2,
+    2-5 apart, n // 64 a frame."""
+    import torch
+    t = torch.arange(n, device=dev) / 24000.0
+    x = 0.3 * torch.sin(2 * np.pi * 600.0 * t + 6.0 * torch.rand(
+        frames, 1, generator=gen, device=dev)) + 0.02 * torch.randn(
+        frames, n, generator=gen, device=dev)
+    if kind == "tone":
+        pos = torch.randint(14, n - 14, (frames, 3), generator=gen,
+                            device=dev)
+        amp = 1.5 * torch.sign(torch.randn(frames, 3, generator=gen,
+                                           device=dev))
+        amp[:, 1:] *= torch.rand(frames, 2, generator=gen, device=dev) < 0.5
+        x.scatter_add_(1, pos, amp)
+        x[0::64, 13] += 2.0
+        x[1::64, n - 15] += 2.0
+        x[8::16] = 0.0
+        return x
+    if kind != "crowded":
+        raise ValueError(f"nb_stimulus: no kind {kind!r}")
+    lo, hi = 13, n - 15   # the first and last guarded hit
+    f = torch.arange(frames, device=dev)
+    turn, sign = (f % 4)[:, None], (1.0 - 2.0 * (f % 2))[:, None]
+
+    def signs():
+        return torch.where(torch.rand(frames, n, generator=gen, device=dev)
+                           < 0.5, -1.0, 1.0)
+    k = -(-(hi - lo) // 7) + 1
+    train = torch.zeros(n, device=dev)
+    train[torch.round(torch.linspace(lo, hi, k)).long()] = 8.0 * torch.tensor(
+        [1.0, 1.0, -1.0, -1.0], device=dev)[torch.arange(k) % 4]
+    x = torch.where(turn == 0, 0.02 * torch.randn(frames, n, generator=gen,
+                                                  device=dev)
+                    + sign * train, x)
+    step = 6 + turn
+    off = torch.randint(0, 8, (frames, 1), generator=gen, device=dev) % step
+    on = (turn >= 1) & (turn <= 2)
+    u = torch.arange(n, device=dev) - lo - off
+    x = x + torch.where(on & (u >= 0) & (u % step == 0) & (u + lo + off <= hi),
+                        3.0 * signs(), 0.0)
+    for _ in range(max(1, n // 64)):
+        s = torch.randint(lo, hi - 24, (frames, 1), generator=gen, device=dev)
+        ln = torch.randint(6, 24, (frames, 1), generator=gen, device=dev)
+        sp = torch.randint(2, 6, (frames, 1), generator=gen, device=dev)
+        u = torch.arange(n, device=dev) - s
+        x = x + torch.where((turn == 3) & (u >= 0) & (u < ln) & (u % sp == 0),
+                            2.0 * signs(), 0.0)
+    return x.contiguous()
 
 
 def e1_flops(x) -> int:
@@ -754,22 +820,37 @@ def host_layers(dev, card: str, n_ch: int, stim, counts) -> dict:
             f"{result['d']}")
         del runner
 
-    # (e) times: the graphed and the eager runner, and the bare chain loop
+    def nb_radio():
+        """The default radio with the noise blanker on (N1): `Radio`'s
+        config has `nb_on` but, as t41x's, builds its chain without it."""
+        import dataclasses
+        radio = Radio(device=dev)
+        radio._chain = RxChain(dataclasses.replace(radio.chain.spec,
+                                                   nb_on=True), device=dev)
+        return radio
+
+    # (e) times: the graphed and the eager runner, and the bare chain loop;
+    # the nb spec's graphed step beside the default's
     if cuda:
         result["e"] = {}
-        for name, mode in (("default", None), ("sam", "sam")):
+        for name, mode in (("default", None), ("sam", "sam"), ("nb", None)):
             figures = {}
-            for kind in ("graphed", "eager"):
-                radio = Radio(device=dev)
+            for kind in ("graphed",) if name == "nb" else ("graphed",
+                                                             "eager"):
+                radio = nb_radio() if name == "nb" else Radio(device=dev)
                 if mode:
                     radio.set_mode(mode)
                 runner = runner_for(radio, graphs=kind == "graphed",
                                     capacity=8)
                 runner.keep_audio = False
-                runner.prime()
+                reset_counts()
+                runner.prime()   # the warm-up and the capture
                 body = steps(runner)
                 for _ in range(3):
                     body()
+                if name == "nb" and read_counts()["N1"] == 0:
+                    raise AssertionError("phase 5 (e) nb: N1 was not "
+                                         "captured")
                 # the runner's own time: `step` (pop, stage, replay or
                 # the eager chain, read back; it ends in a sync), the
                 # source's push outside it as a producer thread's is
@@ -790,7 +871,14 @@ def host_layers(dev, card: str, n_ch: int, stim, counts) -> dict:
                 if kind == "graphed":
                     figures["graphed_step_split_ms"] = _step_split(
                         runner, blocks[0])
+                    figures["budget_ms"] = BLOCK_BUDGET_MS
                 del runner
+            if name == "nb":
+                result["e"][name] = figures
+                log(f"# phase 5 (e) nb (N1 in the graph), {n_ch} channels, "
+                    f"ms a block against {BLOCK_BUDGET_MS:.3f} and device "
+                    f"idle share ({card}): {figures}")
+                continue
             spec = Radio(device=dev)
             if mode:
                 spec.set_mode(mode)
@@ -1815,6 +1903,7 @@ TOOLS_MIN_MS = 200.0
 STAGE_CHANNELS = 1024
 STAGE_BLOCKS = 8
 STAGE_MIN_MS = 50.0
+NB_ADD_ROUNDS = 6   # phase 8 (b): pallas and pallas_nb in turns
 # beside the reference's variants: the noise blanker's share of a block,
 # and the FFT overlap-save filter against the tap GEMMs with the kernels
 STAGE_EXTRA = {"pallas_nb": dict(nb_on=True, use_kernels=True),
@@ -1983,6 +2072,20 @@ def tools_layer(dev, card: str, counts, feed) -> dict:
         log(f"# phase 8 (b) stagebench {name:26s} {r['us_per_block']:9.1f} "
             f"us/block/{STAGE_CHANNELS}ch  {launched} ({card})")
     result["stagebench_floor_us"] = floor_s * 1e6
+    # the noise blanker's add over `pallas`, with its spread: NB_ADD_ROUNDS
+    # rounds of the two, in turns (pallas, nb, nb, pallas, ...)
+    adds = []
+    for i in range(NB_ADD_ROUNDS):
+        pair = ("pallas", "pallas_nb")[::1 if i % 2 == 0 else -1]
+        us = {k: stagebench.time_variant(
+            {**stagebench.VARIANTS, **STAGE_EXTRA}[k], STAGE_CHANNELS,
+            STAGE_BLOCKS, STAGE_MIN_MS, dev, floor_s, iq)["us_per_block"]
+            for k in pair}
+        adds.append(us["pallas_nb"] - us["pallas"])
+    result["stagebench_nb_add_us"] = adds
+    log(f"# phase 8 (b) stagebench pallas_nb - pallas over {NB_ADD_ROUNDS} "
+        f"rounds: mean {np.mean(adds):.2f}, min {min(adds):.2f}, max "
+        f"{max(adds):.2f} us/block/{STAGE_CHANNELS}ch ({card})")
 
     # (c) ft8_sensitivity against the reference's record
     t0 = time.perf_counter()
@@ -2557,47 +2660,41 @@ def main(argv: list[str]) -> int:
         OPS_PER_ELEMENT["K8"] * pw.numel(), (pw, g_k),
         knr.kim_gains(kp, g_k, pw))
 
-    # N1: audio frames at the chain's shape (1024 x 256), a 600 Hz tone
-    # in light noise with 1-3 impulses a frame; impulses at the hit
-    # guard's edges (13 and n - 15) in every 64th frame and the next;
-    # every 16th frame, from the 8th, silent.  Its decisions against the
+    # N1: audio frames at the chain's shape (1024 x 256), the tone with
+    # 1-3 impulses a frame (`nb_stimulus`), then crowded impulse noise
+    # (its slow path: long dependent walks).  Its decisions against the
     # plain version's (`parity.nb_decisions`), the silent frames passed
     # through
     if knb is not None:
         n = C.AUDIO_BLOCK
-        t = torch.arange(n, device=dev) / C.AUDIO_RATE
-        xa = 0.3 * torch.sin(2 * np.pi * 600.0 * t + 6.0 * torch.rand(
-            N_CH, 1, generator=gen, device=dev)) + 0.02 * torch.randn(
-            N_CH, n, generator=gen, device=dev)
-        pos = torch.randint(14, n - 14, (N_CH, 3), generator=gen, device=dev)
-        amp = 1.5 * torch.sign(torch.randn(N_CH, 3, generator=gen,
-                                           device=dev))
-        amp[:, 1:] *= torch.rand(N_CH, 2, generator=gen, device=dev) < 0.5
-        xa.scatter_add_(1, pos, amp)
-        xa[0::64, 13] += 2.0
-        xa[1::64, n - 15] += 2.0
-        xa[8::16] = 0.0
-        y_k, m_k = knb.launch_with_mask(xa)
-        y_p = nb_mod.noise_blanker_plain(xa)
-        m_p, margin = nb_mod.decision_margin(xa)
-        torch.cuda.synchronize()
-        rep = parity.nb_decisions(xa, y_k, m_k, y_p, m_p, margin)
-        log(f"# N1 decisions against the plain version: {rep} ({N_CH} "
-            f"frames of {n}, {card})")
-        if not (rep["ok"] and rep["blanked_samples"] > 0
-                and torch.equal(y_k[8::16], xa[8::16])):
-            raise AssertionError(f"N1 vs its plain version: {rep}")
-        same = ~(m_k ^ m_p).any(dim=-1)
-        row("N1 nb", N1, lambda: nb_mod.noise_blanker(xa),
-            lambda: nb_mod.noise_blanker_plain(xa),
-            float((y_k[same] - y_p[same]).abs().max()),
-            f"{parity.AUDIO_SNR_MIN_DB} dB ({rep['snr_db']:.1f}), "
-            f"{rep['mask_samples_differ']} mask samples differing",
-            n1_flops(xa, m_p), (xa,), y_k, plain_reps=REPS_PLAIN)
-        # where a frame's time goes, and the predictors' cycles a blanked
-        # sample (frames a block wait at its barriers for the slowest)
-        log_phases("N1", lambda: knb.nb_phases(xa)[1], knb.N1_PHASES, card,
-                   "predict", float(m_p.sum()) / N_CH)
+        # the crowded frames from a generator of their own, so that the
+        # later phases' stimuli (drawn from `gen`) stay as they were
+        gen_crowd = torch.Generator(device=dev).manual_seed(16)
+        for kind, name, g in (("tone", "N1 nb", gen),
+                              ("crowded", "N1 nb crowded", gen_crowd)):
+            xa = nb_stimulus(kind, N_CH, n, g, dev)
+            y_k, m_k = knb.launch_with_mask(xa)
+            y_p = nb_mod.noise_blanker_plain(xa)
+            m_p, margin = nb_mod.decision_margin(xa)
+            torch.cuda.synchronize()
+            rep = parity.nb_decisions(xa, y_k, m_k, y_p, m_p, margin)
+            log(f"# {name} decisions against the plain version: {rep} "
+                f"({N_CH} frames of {n}, {card})")
+            if not (rep["ok"] and rep["blanked_samples"] > 0
+                    and (kind != "tone" or torch.equal(y_k[8::16],
+                                                       xa[8::16]))):
+                raise AssertionError(f"{name} vs its plain version: {rep}")
+            same = ~(m_k ^ m_p).any(dim=-1)
+            row(name, N1, lambda: nb_mod.noise_blanker(xa),
+                lambda: nb_mod.noise_blanker_plain(xa),
+                float((y_k[same] - y_p[same]).abs().max()),
+                f"{parity.AUDIO_SNR_MIN_DB} dB ({rep['snr_db']:.1f}), "
+                f"{rep['mask_samples_differ']} mask samples differing",
+                n1_flops(xa, m_p), (xa,), y_k, plain_reps=REPS_PLAIN)
+            # where a frame's time goes, and the predictors' cycles a
+            # blanked sample
+            log_phases(name, lambda: knb.nb_phases(xa)[1], knb.N1_PHASES,
+                       card, "predict", float(m_p.sum()) / N_CH)
 
     # S1: audio at the chain's rate through the NR's own transforms to
     # its bin powers, per channel a noise level of its own and a keyed
@@ -2913,6 +3010,21 @@ def main(argv: list[str]) -> int:
             report["nb_regions_differ"] = regions(m_k ^ m_p)
             if regions(m_p) == 0:
                 raise AssertionError(f"{name}: nothing was blanked")
+            # the two paths' inputs differ too (K1's ~1e-8); on the kernel
+            # path's own blanker input N1 (run again: the chain's output,
+            # bit for bit) may decide otherwise than the plain blanker only
+            # near the threshold (`parity.nb_decisions`)
+            xb = pre_k["audio_24k"].reshape(-1, C.AUDIO_BLOCK).contiguous()
+            y_n1, mask_n1 = knb.launch_with_mask(xb)
+            m_b, margin = nb_mod.decision_margin(xb)
+            rep = parity.nb_decisions(xb, y_n1, mask_n1,
+                                      nb_mod.noise_blanker_plain(xb), m_b,
+                                      margin)
+            report["nb_decisions_on_the_kernel_path_input"] = rep
+            if not (rep["ok"] and torch.equal(
+                    y_n1, out_k["audio_24k"].reshape(xb.shape))):
+                raise AssertionError(f"{name}: N1 on the chain's blanker "
+                                     f"input: {rep}")
             # the eager block's wall, with N1 and with the plain loop
             for use_kernels in (True, False):
                 chain = RxChain(ChainSpec(use_kernels=use_kernels, **kw),

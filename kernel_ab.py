@@ -11,8 +11,9 @@ of its neighbours shows as a difference between the two runs of one
 tree), it runs `chip_smoke.py --kernels ROOT` in a process of its own:
 that builds the tree's kernels, holds each against its plain version,
 and times it at 1024 channels, C1 (the transmit chain's compressor,
-phase 6 (a)), N1 (the noise blanker), S1 (spectral NR's gains) and E1
-(the EQ), where the tree has them, included.  It prints each run's log (its build, each
+phase 6 (a)), N1 (the noise blanker, on sparse impulses and on crowded
+impulse noise: rows "N1 nb" and "N1 nb crowded"), S1 (spectral NR's
+gains) and E1 (the EQ), where the tree has them, included.  It prints each run's log (its build, each
 kernel's check and times, the phase split of K2, K5, K6, K7 and C1
 where the tree has it) and JSON line, a table
 of each row's device µs a launch (and, where the row has them, the

@@ -12,7 +12,8 @@ small odd channel counts (7 and 33; K1 zoom None/0 in complex64 and
 q15, K1z at zoom 1, 3 and 7 and zoom 1 in q15, K2, K3 on a contiguous
 row and on the real part of a complex64 row, K4, K5, K6, K7 in NR and
 notch form, K8, C1, the transmit chain's compressor of phase 6, N1,
-the noise blanker, S1, spectral NR's gains at 2 and 16 hops, and E1,
+the noise blanker, on sparse and on crowded impulses
+(`chip_smoke.nb_stimulus`), S1, spectral NR's gains at 2 and 16 hops, and E1,
 the EQ, at every channel, at one, and over 2048 samples: 8 passes),
 each twice on the same inputs, and fails unless the two
 runs agree bit for bit: a race that changes what a kernel computes
@@ -38,9 +39,12 @@ after each `__syncthreads()` and `cluster.sync()` and after each wait
 at or arrival on a named barrier (`named_bar_sync`, `named_bar_arrive`:
 C1's two warp roles meet there), spins for 0-2047 cycles chosen by its
 block, its warp and the call site, and every lane, after each
-`warp_sync()` (N1's lanes exchange a frame's arrays there), for 0-2047
-cycles chosen by its block, warp, lane and the call site (S1 has no
-site: no shared memory, its lanes meet only in shuffles); and holds
+`warp_sync()` (N1's lanes exchange a frame's scratch there: the run
+list, the mask words and the input copies before the walk, the
+predictors' outputs after it), for 0-2047 cycles chosen by its block,
+warp, lane and the call site (S1 has no site: no shared memory; its
+lanes, and N1's outside those two points, meet only in shuffles, which
+every lane of the warp reaches together); and holds
 every row of the first form, at 7, 33 and 1024 channels, against the
 normal library bit for bit.  A phase that
 reads what another warp (or lane) writes without a barrier between
@@ -214,10 +218,15 @@ def kernel_rows(dev, ch: int, gen):
     xc = randn(ch, C.BLOCK_SIZE, scale=0.5)
     rows.append(("C1 compressor", lambda: comp_mod.compress(cp, cst, xc)))
 
-    # N1: noise frames with an impulse every 70 samples
+    # N1: noise frames with an impulse every 70 samples, and crowded
+    # impulse noise (long walks, groups of runs closer than the
+    # predictors' order: chip_smoke.nb_stimulus)
     xn = randn(ch, C.AUDIO_BLOCK, scale=0.1)
     xn[:, 40::70] += 2.0
     rows.append(("N1 nb", lambda: nb_mod.noise_blanker(xn)))
+    import chip_smoke
+    xc = chip_smoke.nb_stimulus("crowded", ch, C.AUDIO_BLOCK, gen, dev)
+    rows.append(("N1 nb crowded", lambda: nb_mod.noise_blanker(xc)))
 
     # S1: 2 and 16 hops, from a state whose frame counts straddle the
     # init phase's end

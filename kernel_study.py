@@ -7,6 +7,8 @@ split of the original K3, and variants of K3's thread shape.
     python3 kernel_study.py k3-variants ROOT         (needs a card)
     python3 kernel_study.py profiler-loss            (needs a card)
     python3 kernel_study.py e1-s1 ROOT               (needs a card)
+    python3 kernel_study.py n1 ROOT [SASS_DIR]       (needs a card)
+    python3 kernel_study.py n1-shapes ROOT           (needs a card)
 
 `sass` compiles each CUDA source with the flags of
 `t41x_torch/kernels/_build.py` and prints, for every kernel in it, its
@@ -36,6 +38,26 @@ plain version (E1's SNR; S1's NN choices by `parity.nr_decisions`, its
 states bit for bit), its stamped variant against it bit for bit, its
 device µs (L2 flushed) and its `clock64` split cold and warm, where
 ROOT's wrappers have a stamped variant.
+
+`n1` builds ROOT's kernels (printing ptxas' registers and spills),
+prints the SASS summary of ROOT's `nb.cu` (and, with SASS_DIR, writes
+its whole listing there as `n1_<ROOT's name>.sass`, where the
+predictors' loop can be read), and runs ROOT's N1 on `chip_smoke.py`'s
+tone and crowded stimuli (`chip_smoke.nb_stimulus`) at 1024 x 256 and
+4096 x 256: each against the plain version (`parity.nb_decisions`),
+the stamped variant against it bit for bit, its device µs (L2 flushed)
+and its `clock64` split cold and warm with the predictors' cycles a
+blanked sample, the frames' duration (median, p99, max: a launch lasts
+as long as its slowest frame); then stagebench's `pallas` and
+`pallas_nb` variants (a graphed block at 1024 channels without and with
+the noise blanker, ROOT's tools) in `chip_smoke.NB_ADD_ROUNDS` rounds in
+turns, and the blanker's add with its spread.
+
+`n1-shapes` builds ROOT's N1 with 2, 4 and 8 frames a block (a text
+substitution of WARPS) beside the tree's library and times each by CUDA
+events, L2 flushed before each launch, in three rounds of alternating
+order, on `chip_smoke.nb_stimulus`'s tone and crowded frames at 1024 x
+256, each first held against the tree's own N1 bit for bit.
 
 `profiler-loss` runs the whole `chip_smoke.py` and, after each of its
 profiler measurements, profiles the same calls once more without the
@@ -163,7 +185,8 @@ def nvcc_so(source: str, name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(_build.build([src], name)))
 
 
-def sass(sources: list[str]) -> int:
+def sass(sources: list[str], keep: Path | None = None) -> int:
+    """Each source's SASS summary; with `keep`, its listing there too."""
     from t41x_torch.kernels import _build
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     out_dir = _build.BUILD_DIR / "study"
@@ -175,6 +198,9 @@ def sass(sources: list[str]) -> int:
         text = subprocess.run([cuobjdump, "-sass", str(obj)],
                               capture_output=True, text=True,
                               check=True).stdout
+        if keep is not None:
+            keep.write_text(text)
+            print(f"# SASS listing of {f}: {keep}", flush=True)
         for part in re.split(r"\n\s*Function : ", text)[1:]:
             name = part.split("\n", 1)[0].strip()
             ops = Counter(m.group(2).split(".")[0] for m in re.finditer(
@@ -443,14 +469,168 @@ def e1_s1() -> int:
     return 0
 
 
+def n1(sass_dir: str | None) -> int:
+    import importlib.util
+
+    import torch
+
+    # this tree's chip_smoke (ROOT's may predate nb_stimulus), ROOT's
+    # t41x_torch
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    from t41x_torch.dsp import nb as tnb
+    from t41x_torch.kernels import _build, nb as knb
+    from t41x_torch.utils import parity
+
+    card = card_line()
+    root = Path(knb.__file__).parents[2]
+    print(f"# n1: {root} ({card})", flush=True)
+    _build.library(verbose=True)
+    keep = None
+    if sass_dir is not None:
+        Path(sass_dir).mkdir(parents=True, exist_ok=True)
+        keep = Path(sass_dir) / f"n1_{root.name}.sass"
+    sass([str(_build.SRC_DIR / "nb.cu")], keep)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    failed = []
+    for kind in ("tone", "crowded"):
+        for frames in (1024, 4096):
+            x = cs.nb_stimulus(kind, frames, 256, gen, dev)
+            y_k, m_k = knb.launch_with_mask(x)
+            y_p = tnb.noise_blanker_plain(x)
+            m_p, margin = tnb.decision_margin(x)
+            torch.cuda.synchronize()
+            rep = parity.nb_decisions(x, y_k, m_k, y_p, m_p, margin)
+            same = ~(m_k ^ m_p).any(dim=-1)
+            err = float((y_k[same] - y_p[same]).abs().max())
+            us = cs.device_us(lambda: tnb.noise_blanker(x), "nb_kernel")
+            print(f"# N1 {kind} {frames} x 256: {rep}; max |err| on equal "
+                  f"masks {err:.3g}; device {us:.2f} us ({card})",
+                  flush=True)
+            stamped = torch.equal(knb.nb_phases(x)[0], y_k)
+            print(f"# N1 {kind} {frames}: stamped bit for bit {stamped}",
+                  flush=True)
+            cs.log_phases(f"N1 {kind} {frames} x 256",
+                          lambda: knb.nb_phases(x)[1], knb.N1_PHASES, card,
+                          "predict", float(m_p.sum()) / frames,
+                          n_ch=frames)
+            # a launch lasts as long as its slowest frame
+            ns = knb.nb_phases(x)[1][:, -1].double()
+            torch.cuda.synchronize()
+            print(f"# N1 {kind} {frames}: a frame's ns warm, median "
+                  f"{float(ns.median()):.0f}, p99 "
+                  f"{float(ns.quantile(0.99)):.0f}, max {float(ns.max()):.0f}",
+                  flush=True)
+            if not (rep["ok"] and stamped):
+                failed.append(f"{kind} {frames}")
+    # the noise blanker's add to a graphed block (stagebench `pallas_nb`
+    # over `pallas`, ROOT's tools), in turns
+    from t41x_torch import constants as C
+    from t41x_torch.chain import ChainSpec
+    from t41x_torch.tools import bench, stagebench
+    floor_s = bench.dispatch_floor(dev)
+    iq = bench.make_blocks(ChainSpec(), cs.STAGE_CHANNELS, cs.STAGE_BLOCKS,
+                           seed=0, device=dev)
+    variants = {"pallas": stagebench.VARIANTS["pallas"],
+                "pallas_nb": cs.STAGE_EXTRA["pallas_nb"]}
+    adds = []
+    for i in range(cs.NB_ADD_ROUNDS):
+        us = {k: stagebench.time_variant(
+            variants[k], cs.STAGE_CHANNELS, cs.STAGE_BLOCKS, cs.STAGE_MIN_MS,
+            dev, floor_s, iq)["us_per_block"]
+            for k in list(variants)[::1 if i % 2 == 0 else -1]}
+        adds.append(us["pallas_nb"] - us["pallas"])
+        print(f"# stagebench round {i + 1}: pallas {us['pallas']:.1f}, "
+              f"pallas_nb {us['pallas_nb']:.1f} us/block/"
+              f"{cs.STAGE_CHANNELS}ch ({card})", flush=True)
+    print(f"# stagebench pallas_nb - pallas: mean "
+          f"{sum(adds) / len(adds):.2f}, min {min(adds):.2f}, max "
+          f"{max(adds):.2f} us a block of {C.AUDIO_BLOCK} audio samples x "
+          f"{cs.STAGE_CHANNELS} ({card})", flush=True)
+    if failed:
+        print(f"# N1 failed: {', '.join(failed)}", file=sys.stderr)
+    return 1 if failed else 0
+
+
+def n1_shapes() -> int:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from t41x_torch.kernels import _build, nb as knb
+
+    src = (_build.SRC_DIR / "nb.cu").read_text()
+    m = re.search(r"constexpr int WARPS = (\d+);", src)
+    libs = {f"tree ({m.group(1)} frames a block)": _build.library()}
+    for w in (2, 4, 8):
+        v = src.replace(m.group(0), f"constexpr int WARPS = {w};")
+        libs[f"{w} frames a block"] = nvcc_so(v, f"nb_warps{w}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    card = card_line()
+    for kind in ("tone", "crowded"):
+        x = cs.nb_stimulus(kind, N_CH, N, gen, dev)
+
+        def launcher(lib):
+            fn = lib.t41x_nb
+            fn.argtypes, fn.restype = knb._ARGS, ctypes.c_int
+            y = torch.empty_like(x)
+
+            def go():
+                if fn(x.data_ptr(), N_CH, N, knb.NB_THRESH, y.data_ptr(),
+                      None, torch.cuda.current_stream().cuda_stream):
+                    raise RuntimeError("t41x_nb: launch failed")
+                return y
+            return go
+
+        cands = [(k, launcher(lib)) for k, lib in libs.items()]
+        ref = cands[0][1]().clone()
+        for k, fn in cands:
+            if not torch.equal(fn(), ref):
+                raise AssertionError(f"N1 {k}: not bit for bit")
+
+        def cold(fn, reps=60):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(reps):
+                cs.l2_flush()
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                fn()
+                e.record()
+                e.synchronize()
+                ts.append(s.elapsed_time(e) * 1e3)
+            return float(np.median(ts))
+
+        times = {}
+        for order in (cands, cands[::-1], cands):
+            for k, fn in order:
+                times.setdefault(k, []).append(cold(fn))
+        times["empty kernel"] = [cold(lambda: torch.cuda._sleep(0))]
+        for k, v in times.items():
+            print(f"# N1 {kind} {k:28s} events, L2 flushed: "
+                  + " / ".join(f"{t:.2f}" for t in v)
+                  + f" us ({N_CH} x {N}, {card})", flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, str(HERE))
-    if len(argv) == 2 and argv[0] == "e1-s1":   # ROOT's t41x_torch first
+    if len(argv) >= 2 and argv[0] in ("e1-s1", "n1", "n1-shapes"):
         sys.path.insert(0, str(Path(argv[1]).resolve()))
     if len(argv) >= 2 and argv[0] == "sass":
         return sass(argv[1:])
     if argv not in (["k3-split"], ["profiler-loss"]) and not (
-            len(argv) == 2 and argv[0] in ("k3-variants", "e1-s1")):
+            len(argv) == 2 and argv[0] in ("k3-variants", "e1-s1",
+                                            "n1-shapes")) and not (
+            len(argv) in (2, 3) and argv[0] == "n1"):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -462,6 +642,10 @@ def main(argv: list[str]) -> int:
         return profiler_loss()
     if argv[0] == "e1-s1":
         return e1_s1()
+    if argv[0] == "n1":
+        return n1(argv[2] if len(argv) == 3 else None)
+    if argv[0] == "n1-shapes":
+        return n1_shapes()
     return k3_split() if argv[0] == "k3-split" else k3_variants(argv[1])
 
 

@@ -81,6 +81,73 @@ def _distance_from_start(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, t - last_reset, 0).to(torch.float32)
 
 
+def blank_runs(mask: torch.Tensor) -> list[tuple[int, int]]:
+    """One frame's blanked runs [start, end), in order, from its mask
+    (n,) bool."""
+    m = mask.to(torch.int8)
+    edge = torch.diff(m, prepend=m.new_zeros(1), append=m.new_zeros(1))
+    starts = torch.nonzero(edge == 1).flatten().tolist()
+    ends = torch.nonzero(edge == -1).flatten().tolist()
+    return list(zip(starts, ends))
+
+
+def run_groups(runs: list[tuple[int, int]], gap: int = ORDER):
+    """The runs chained into groups: a run joins its predecessor's group
+    when fewer than `gap` unset samples lie between them, since a
+    predictor's history (ORDER samples) then reaches into that run's
+    outputs; the first run of a group depends on the input alone."""
+    groups = []
+    for s, e in runs:
+        if groups and s - groups[-1][-1][1] < gap:
+            groups[-1].append((s, e))
+        else:
+            groups.append([(s, e)])
+    return groups
+
+
+def walk_by_runs(x: torch.Tensor, mask: torch.Tensor, a: torch.Tensor,
+                 gap: int = ORDER):
+    """The predictors and the cross-fade weights as N1 computes them (one
+    frame at a time, used by no main path): the mask's runs
+    (`blank_runs`) in groups (`run_groups`), each group walked alone, as
+    a lane pair of N1 walks it, from a copy of the input that holds no
+    other group's outputs: the forward predictor over its runs in order,
+    each run's history the ORDER samples before it, the backward one
+    over them in reverse from the ORDER after.  Each prediction is
+    `_run_pred`'s own sum of the same 10 values; the weights come from
+    the runs' bounds: w_bw = d_fw / max(d_fw + d_bw, 1) with d_fw = t - s
+    + 1, d_bw = e - t for t in [s, e).  x, mask (..., n), a (..., ORDER);
+    the mask must stay ORDER samples clear of the frame's edges.
+    Returns (fwd, bwd, w_bw), each (..., n): fwd and bwd equal to
+    `_run_pred`'s outputs, w_bw to the plain version's weights, where
+    `gap` is ORDER."""
+    n = x.shape[-1]
+    xs, ms = x.reshape(-1, n), mask.reshape(-1, n)
+    a_rev = a.reshape(-1, ORDER).flip(-1)
+    fwd, bwd = xs.clone(), xs.clone()
+    w_bw = torch.zeros_like(xs)
+    for f in range(xs.shape[0]):
+        for group in run_groups(blank_runs(ms[f]), gap):
+            yf, yb = xs[f].clone(), xs[f].clone()
+            for s, e in group:
+                if s < ORDER or e > n - ORDER:
+                    raise ValueError("walk_by_runs: a run within ORDER of "
+                                     "the frame's edge")
+                for t in range(s, e):
+                    yf[t] = torch.sum(a_rev[f] * yf[t - ORDER:t], dim=-1)
+            for s, e in reversed(group):
+                for t in range(e - 1, s - 1, -1):
+                    yb[t] = torch.sum(
+                        a_rev[f] * yb[t + 1:t + 1 + ORDER].flip(-1), dim=-1)
+            for s, e in group:
+                fwd[f, s:e], bwd[f, s:e] = yf[s:e], yb[s:e]
+                t = torch.arange(s, e, dtype=torch.float32)
+                d_fw, d_bw = t - s + 1, e - t
+                w_bw[f, s:e] = d_fw / torch.clamp(d_fw + d_bw, min=1.0)
+    return (fwd.reshape(x.shape), bwd.reshape(x.shape),
+            w_bw.reshape(x.shape))
+
+
 def _detect(x: torch.Tensor, thresh: float):
     """The detection half of the blanker: (lpcs, temp, threshold,
     mask), temp the matched filter's output and mask the dilated blank

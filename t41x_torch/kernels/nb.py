@@ -6,7 +6,9 @@ forward and backward predictors, the cross-fade distances) as
 version's per-sample loop launches ~2,300 small ops a 256-sample block,
 about half of a block's 10.667 ms budget at 1024 channels, and the
 chain's `nb_on` path runs it.  N1 (`t41x_torch/csrc/nb.cu`) computes the
-whole blanker in one launch, one warp a frame.  The dispatch (CPU
+whole blanker in one launch, one warp a frame with its samples in
+registers, the predictors walked by groups of runs (the walk that
+`t41x_torch.dsp.nb.walk_by_runs` states in plain torch).  The dispatch (CPU
 tensors, or `use_kernel=False`, to the plain version
 `t41x_torch.dsp.nb.noise_blanker_plain`; CUDA tensors here) is
 `t41x_torch.dsp.nb.noise_blanker`.
@@ -35,12 +37,12 @@ _P, _I = _build.PTR, _build.INT
 _ARGS = [_P, _I, _I, _build.FLOAT, _P, _P, _P]
 _PHASE_ARGS = _ARGS[:-1] + [_P, _P]   # the stamps buffer before the stream
 # what each row of stamps (one a frame) holds: clock64 cycles of the
-# block's staging, the lags and Levinson-Durbin, the two FIRs, the
-# detection (variance, threshold, hits, dilation), the predictors, the
-# cross-fade and the block's store, then the frame's total cycles and
-# nanoseconds
-N1_PHASES = ("staging", "lpc", "filters", "detect", "predict",
-             "cross-fade", "store")
+# frame's loads (until its samples are in shared memory), the lags and
+# Levinson-Durbin, the two FIRs, the detection (variance, threshold,
+# hits, dilation, the run list), the predictors, the cross-fade and the
+# frame's store, then the frame's total cycles and nanoseconds
+N1_PHASES = ("load", "lpc", "filters", "detect", "predict", "cross-fade",
+             "store")
 
 
 def mask_words(n: int) -> int:

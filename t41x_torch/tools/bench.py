@@ -26,7 +26,10 @@ Method (`bench.py`'s, on the card):
   checksum (`.item()`, which waits for the card); `repeats` is scaled
   until it takes >= --min-ms against the measured dispatch floor (one
   replay of a one-kernel graph plus the fetch).  A linearity check
-  doubles `repeats` and records the time ratio (~2).
+  doubles `repeats` and records the time ratio (~2): the median over
+  pairs of a 1x and a 2x region timed back to back, in turns (1x 2x,
+  2x 1x, ...), so that a change of the card's clock between the two
+  cancels within a pair and one disturbed pair does not decide.
 * The eager rate, the same loop without the graph, is reported beside
   the graphed one.
 * --check (default on): before timing, the exact timed spec streams a
@@ -236,6 +239,17 @@ def timed(d, repeats: int, reps: int) -> float:
     return best
 
 
+def linearity(d, repeats: int, pairs: int) -> float:
+    """Median over `pairs` of the time ratio of 2 x `repeats` dispatches
+    to `repeats`, the two of a pair timed back to back, in turns (1x 2x,
+    2x 1x, ...)."""
+    ratios = []
+    for i in range(pairs):
+        t = {k: timed(d, k * repeats, 1) for k in ((1, 2), (2, 1))[i % 2]}
+        ratios.append(t[2] / t[1])
+    return float(np.median(ratios))
+
+
 def dispatch_floor(device) -> float:
     """Seconds of one trivial dispatch and its fetch: the replay of a
     one-kernel graph on the card, one op on the CPU (best of 10)."""
@@ -392,7 +406,7 @@ def measure(config: str, spec, n_ch: int, args, dev, floor_s: float) -> dict:
     t = timed(d, repeats, args.reps)
     lin_ratio = None
     if not args.no_linearity:
-        lin_ratio = timed(d, 2 * repeats, max(2, args.reps - 1)) / t
+        lin_ratio = linearity(d, repeats, max(3, args.reps))
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 

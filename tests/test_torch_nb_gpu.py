@@ -6,9 +6,11 @@ imports nothing of `t41x` or JAX, so the card's machine runs it as
     python -m pytest --noconftest -m gpu tests/test_torch_nb_gpu.py
 
 N1 (`t41x_torch/csrc/nb.cu`) against `noise_blanker_plain` on the card
-at 1, 7, 130 and 1024 frames x n 64, 256 and 1000, on the CPU tests'
-stimuli (tone, noise and impulses; silent frames; impulses at the
-guard's edges; adjacent impulses that merge) and on random frames, to
+at 1, 7, 130 and 1024 frames x n 64, 256, 1000 and 1024, on the CPU
+tests' stimuli (tone, noise and impulses; silent frames; impulses at the
+guard's edges; adjacent impulses that merge; crowded impulse noise,
+N1's slow path: long runs, and groups of runs closer than the
+predictors' order) and on random frames, to
 `parity.nb_decisions`: the blank masks equal but at decisions within
 1e-4 of the threshold (counted; 0 expected), the output outside N1's
 mask equal to the input bit for bit, the frames with equal masks >= 55
@@ -29,7 +31,7 @@ from t41x_torch.utils import parity
 
 pytestmark = pytest.mark.gpu
 
-KINDS = ("tone", "silent", "edges", "adjacent", "random")
+KINDS = ("tone", "silent", "edges", "adjacent", "random", "crowded")
 SPAN = tnb.ORDER + tnb.PL + 1   # the tone's impulses lie in [SPAN, n - SPAN)
 
 
@@ -40,8 +42,14 @@ def nb_frames(rng, lead: tuple, n: int, kind: str = "tone") -> np.ndarray:
     guard's edges (hits count at [13, n - 14): impulses at 13, 12, n - 15
     and n - 14 by turns); adjacent: the tone with impulses 3 and 4
     samples apart, whose blanked regions merge (hits up to 2 PL + 1
-    apart do); random: unit normal
-    noise."""
+    apart do); random: unit normal noise; crowded: impulse noise on most
+    of the blankable range [10, n - 11) by turns of four frames: a train
+    of +8, +8, -8, -8 impulses at most 7 samples apart over the whole
+    guard in light noise, no tone (one run over [10, n - 11) at n 64, 256,
+    1000 and 1024); the tone with random-sign impulses of 3 every 7
+    samples (long runs); every 8 samples (runs of 7, one unset sample
+    apart: a group of runs closer than ORDER); bursts of impulses 2-5
+    apart."""
     ch = int(np.prod(lead, dtype=int))
     t = np.arange(n) / 24000.0
     x = (0.3 * np.sin(2 * np.pi * 600.0 * t + rng.uniform(0, 6, (ch, 1)))
@@ -63,7 +71,29 @@ def nb_frames(rng, lead: tuple, n: int, kind: str = "tone") -> np.ndarray:
         elif kind == "adjacent":
             p = n // 2 - 4 + c % 5
             x[c, [p, p + 3, p + 7]] += 2.0 * sign
+        elif kind == "crowded":
+            _crowd(rng, x[c], c % 4, sign)
     return x.astype(np.float32).reshape(*lead, n)
+
+
+def _crowd(rng, x: np.ndarray, turn: int, sign: float) -> None:
+    """A crowded frame in place (see nb_frames)."""
+    n = x.shape[-1]
+    lo, hi = tnb.ORDER + tnb.PL, n - 15   # the first and last guarded hit
+    if turn == 0:
+        x[:] = 0.02 * rng.standard_normal(n)
+        k = -(-(hi - lo) // 7) + 1
+        pos = np.round(np.linspace(lo, hi, k)).astype(int)
+        x[pos] += 8.0 * sign * np.array([1, 1, -1, -1])[np.arange(k) % 4]
+    elif turn in (1, 2):
+        step = 6 + turn
+        pos = np.arange(lo + rng.integers(0, step), hi + 1, step)
+        x[pos] += 3.0 * rng.choice([-1.0, 1.0], pos.size)
+    else:
+        for _ in range(max(1, n // 64)):
+            s = rng.integers(lo, hi - 24)
+            pos = np.arange(s, s + rng.integers(6, 24), rng.integers(2, 6))
+            x[pos] += 2.0 * rng.choice([-1.0, 1.0], pos.size)
 
 
 @pytest.fixture
@@ -87,8 +117,8 @@ def _check(x):
     return rep
 
 
-@pytest.mark.parametrize("kind", ["tone", "random"])
-@pytest.mark.parametrize("n", [64, 256, 1000])
+@pytest.mark.parametrize("kind", ["tone", "random", "crowded"])
+@pytest.mark.parametrize("n", [64, 256, 1000, 1024])
 @pytest.mark.parametrize("frames", [1, 7, 130, 1024])
 def test_n1_equals_the_plain_version(cuda, frames, n, kind):
     rng = np.random.default_rng(frames * 31 + n)
@@ -98,6 +128,10 @@ def test_n1_equals_the_plain_version(cuda, frames, n, kind):
     assert knb.launch.launches == before + 2
     if kind == "tone" and n >= 256:
         assert rep["blanked_samples"] > 0
+    if kind == "crowded":
+        # the first frame is one run over the blankable range [10, n - 11)
+        print(f"crowded {frames} x {n}: {rep['blanked_samples']} blanked")
+        assert rep["blanked_samples"] >= n - 21
 
 
 @pytest.mark.parametrize("kind", ["silent", "edges", "adjacent"])

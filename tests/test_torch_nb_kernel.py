@@ -9,12 +9,18 @@ tests/test_torch_device_guard.py fakes them).  The plain version is held
 against `t41x.dsp.nb.noise_blanker` on the card tests' stimuli
 (tests/test_torch_nb_gpu.py `nb_frames`, made with numpy from a seed) at
 n 64, 256 and 1000 and leading shapes (), (7,) and (2, 5), silent
-frames, impulses at the hit guard's edges and adjacent impulses that
-merge, at the bounds of tests/test_torch_stages.py: rtol 2e-4 / atol
-2e-5, the blanked mask equal, samples outside the mask equal to the
-input bit for bit.  The chain's nb spec passes `use_kernels` through to
-the dispatch, and `chip_smoke.py` counts N1's operations and bound as
-the kernel's note states them.
+frames, impulses at the hit guard's edges, adjacent impulses that merge
+and crowded impulse noise (N1's slow path), at the bounds of
+tests/test_torch_stages.py: rtol 2e-4 / atol 2e-5, the blanked mask
+equal, samples outside the mask equal to the input bit for bit.  The
+walk N1 implements (`t41x_torch.dsp.nb.walk_by_runs`: the mask's runs,
+chained into groups by gaps shorter than ORDER, each group walked
+alone) is held bit for bit against `_run_pred` and the plain cross-fade
+weights on every stimulus kind and on masks built to put runs at the
+frame's edges and at every gap around ORDER.  The chain's nb spec
+passes `use_kernels` through to the dispatch, and `chip_smoke.py`
+counts N1's operations and bound as the kernel's note states them and
+makes its crowded stimulus as `nb_frames` does.
 """
 
 import contextlib
@@ -34,7 +40,7 @@ from t41x.dsp import nb as jnb
 from t41x_torch.chain import ChainSpec, RxChain, default_params
 from t41x_torch.dsp import nb as tnb
 from t41x_torch.kernels import _build, nb as knb
-from test_torch_nb_gpu import nb_frames
+from test_torch_nb_gpu import KINDS, nb_frames
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -82,12 +88,19 @@ def test_plain_matches_t41x(n, lead):
     assert mask.any()
 
 
-@pytest.mark.parametrize("kind", ["silent", "edges", "adjacent", "random"])
+# the crowded stimulus' blanked samples at seed 11, 8 frames, n 64 then 256
+CROWDED_BLANKED = {64: 247, 256: 1207}
+
+
+@pytest.mark.parametrize("kind",
+                         ["silent", "edges", "adjacent", "random", "crowded"])
 def test_plain_matches_t41x_on_edge_cases(kind):
     rng = np.random.default_rng(11)
     for n in (64, 256):
         x = nb_frames(rng, (8,), n, kind)
         mask = _hold_against_t41x(x, f"{kind} n {n}")
+        if kind == "crowded":
+            _assert_crowded(mask, CROWDED_BLANKED[n])
         if kind == "silent":
             assert not mask.any()
             assert np.array_equal(
@@ -99,6 +112,124 @@ def test_plain_matches_t41x_on_edge_cases(kind):
             # three impulses 3 and 4 samples apart: one merged region
             assert (_regions(mask) == 1).all()
             assert (mask.sum(-1) >= 7 + 2 * tnb.PL + 1).all()
+
+
+def _assert_crowded(mask: np.ndarray, blanked: int) -> None:
+    """A crowded stimulus' mask: every fourth frame from the first one run
+    over the blankable range [10, n - 11); at least a quarter of the
+    frames blanked over 60% of it, some in several merged runs (a group
+    closer than ORDER); the pinned count of blanked samples."""
+    m = mask.reshape(-1, mask.shape[-1])
+    n = m.shape[-1]
+    print(f"crowded {m.shape[0]} x {n}: {int(m.sum())} blanked")
+    assert int(m.sum()) == blanked
+    assert (_regions(m[0::4]) == 1).all() and m[0::4, 10:n - 11].all()
+    share = m.sum(-1) / (n - 21)
+    assert (share >= 0.6).mean() >= 0.25
+    assert ((share >= 0.6) & (_regions(m) > 1)).any()
+
+
+def _pred_and_weights(x: torch.Tensor, mask: torch.Tensor, a: torch.Tensor):
+    """The plain version's predictors and cross-fade weights."""
+    fwd = tnb._run_pred(x, mask, a)
+    bwd = tnb._run_pred(x.flip(-1), mask.flip(-1), a).flip(-1)
+    d_fw = tnb._distance_from_start(mask)
+    d_bw = tnb._distance_from_start(mask.flip(-1)).flip(-1)
+    return fwd, bwd, d_fw / torch.clamp(d_fw + d_bw, min=1.0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", [64, 256, 1000])
+def test_walk_by_runs_is_the_plain_walk(kind, n):
+    """N1's walk (runs, groups, each group alone, weights from the runs)
+    equals `_run_pred` and the plain weights bit for bit."""
+    x = torch.from_numpy(nb_frames(np.random.default_rng(n + 7), (6,), n,
+                                   kind))
+    lpcs, _, _, mask = tnb._detect(x, tnb.NB_THRESH)
+    a = -lpcs[..., 1:]
+    got = tnb.walk_by_runs(x, mask, a)
+    for g, w, what in zip(got, _pred_and_weights(x, mask, a),
+                          ("forward", "backward", "weights")):
+        assert torch.equal(g, w), f"{kind} n {n}: {what}"
+    if kind != "silent":
+        assert mask.any()
+
+
+def _edge_masks(n: int) -> torch.Tensor:
+    """Masks with runs at the frame's edges [ORDER, n - ORDER) and gaps of
+    ORDER - 1, ORDER and ORDER + 1 first, then of every length from 1 to
+    2 ORDER + 1, runs of 1 to 30 samples."""
+    gaps = [tnb.ORDER - 1, tnb.ORDER, tnb.ORDER + 1,
+            *range(1, 2 * tnb.ORDER + 2)]
+    rows = []
+    for first_len in (1, 7, 30):
+        m = torch.zeros(n, dtype=torch.bool)
+        t = tnb.ORDER
+        for i in range(n):
+            ln = first_len if i == 0 else 1 + (3 * i) % 13
+            if t + ln > n - tnb.ORDER:
+                break
+            m[t:t + ln] = True
+            t += ln + gaps[i % len(gaps)]
+        m[n - tnb.ORDER - 1] = True   # a run that ends at the last place
+        rows.append(m)
+    m = torch.zeros(n, dtype=torch.bool)
+    m[tnb.ORDER:n - tnb.ORDER] = True   # one run over everything
+    rows.append(m)
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_walk_by_runs_on_edge_masks(n):
+    """Runs at the frame's edges and gaps around ORDER, from random frames
+    and predictors: the walk equals the plain version bit for bit with
+    groups split at gaps of ORDER, and not with a rule one sample
+    looser (gaps of ORDER - 1 then walked from the input alone)."""
+    masks = _edge_masks(n)
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((len(masks), n))
+                         .astype(np.float32))
+    a = torch.from_numpy((0.3 * rng.standard_normal((len(masks), tnb.ORDER))
+                          / np.arange(1, tnb.ORDER + 1)).astype(np.float32))
+    want = _pred_and_weights(x, masks, a)
+    for g, w in zip(tnb.walk_by_runs(x, masks, a), want):
+        assert torch.equal(g, w)
+    loose = tnb.walk_by_runs(x, masks, a, gap=tnb.ORDER - 1)
+    assert not torch.equal(loose[0], want[0])
+    assert not torch.equal(loose[1], want[1])
+    assert torch.equal(loose[2], want[2])
+
+
+def test_runs_and_groups():
+    m = torch.zeros(60, dtype=torch.bool)
+    for s, e in ((10, 17), (20, 27), (37, 38), (48, 50)):
+        m[s:e] = True
+    runs = tnb.blank_runs(m)
+    assert runs == [(10, 17), (20, 27), (37, 38), (48, 50)]
+    # gaps 3, 10 and 10: a gap of ORDER starts a new group
+    assert tnb.run_groups(runs) == [[(10, 17), (20, 27)], [(37, 38)],
+                                    [(48, 50)]]
+    assert tnb.run_groups(runs, gap=11) == [runs]
+    assert tnb.blank_runs(torch.zeros(5, dtype=torch.bool)) == []
+    with pytest.raises(ValueError):
+        tnb.walk_by_runs(torch.zeros(1, 30), torch.arange(30)[None] == 3,
+                         torch.zeros(1, tnb.ORDER))
+
+
+def test_chip_smoke_crowded_stimulus():
+    """chip_smoke.py's crowded frames (torch, on the card's generator)
+    follow `nb_frames`' recipe: every fourth frame one run over the
+    blankable range, most of the rest crowded."""
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(5)
+    x = chip_smoke.nb_stimulus("crowded", 16, 256, g, torch.device("cpu"))
+    mask = tnb.decision_margin(x)[0].numpy()
+    _assert_crowded(mask, 2549)
+    tone = chip_smoke.nb_stimulus("tone", 64, 256, g, torch.device("cpu"))
+    assert not tone[8::16].any() and tnb.decision_margin(tone)[0].any()
+    with pytest.raises(ValueError):
+        chip_smoke.nb_stimulus("dense", 4, 256, g, torch.device("cpu"))
 
 
 def test_dispatch_takes_the_plain_version_on_the_cpu():
@@ -211,6 +342,8 @@ def test_kernel_source_agrees_with_the_wrapper():
     assert const("ORDER") == tnb.ORDER and const("PL") == tnb.PL
     assert const("EDGE") == 14 and const("N_MAX") == knb.N_MAX
     assert knb.N_MIN == tnb.ORDER + 1
+    # a stamps row: the phases, then the total cycles and nanoseconds
+    assert const("N_PHASES") == len(knb.N1_PHASES)
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])

@@ -198,6 +198,45 @@ def test_bench_main_prints_one_json_line(capsys):
     assert cfg["parity_db"]["audio"] == float("inf")
 
 
+class _ClockedDispatch:
+    """A dispatch on a fake clock: each replay advances it by `cost(i)`
+    seconds, i the index of the timed region (one `acc.item()` a region)."""
+
+    def __init__(self, cost):
+        self.now, self.region, self.cost = 0.0, 0, cost
+        self.acc = SimpleNamespace(item=self._end_region)
+
+    def _end_region(self):
+        self.region += 1
+        return 0.0
+
+    def replay(self):
+        self.now += self.cost(self.region)
+
+
+@pytest.mark.parametrize("case,want", [
+    # one region of the six 10% fast (a clock step): the median drops it
+    ("one_fast_region", 2.0),
+    # the clock 10% faster from the fourth region on: each pair's two
+    # regions on one clock but the straddling one
+    ("clock_step", 2.0),
+    # a dispatch that skips half its work in every 2x region still shows
+    ("skips_work", 1.0)])
+def test_linearity_is_the_median_of_interleaved_pairs(case, want,
+                                                      monkeypatch):
+    # regions in order: 1x 2x, 2x 1x, 1x 2x
+    twice = (1, 2, 5)
+    cost = {"one_fast_region": lambda r: 0.9 if r == 3 else 1.0,
+            "clock_step": lambda r: 0.9 if r >= 3 else 1.0,
+            "skips_work": lambda r: 0.5 if r in twice else 1.0}[case]
+    d = _ClockedDispatch(cost)
+    monkeypatch.setattr(bench.time, "perf_counter", lambda: d.now)
+    assert bench.linearity(d, 5, 3) == pytest.approx(want)
+    assert d.region == 6
+    assert d.now == pytest.approx(sum(cost(r) * (10 if r in twice else 5)
+                                      for r in range(6)))
+
+
 def test_stagebench_prints_a_row_a_variant(capsys):
     rows = stagebench.main(["--device", "cpu", "--channels", "2",
                             "--blocks", "1", "--min-ms", "0.001"])
