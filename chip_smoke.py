@@ -2188,7 +2188,12 @@ def main(argv: list[str]) -> int:
 
     # ---- 1. build -------------------------------------------------------
     _build.library()
-    log(f"# build: {_build.build_seconds:.1f} s (nvcc sm_90a, "
+    try:
+        from t41x_torch.utils.tracing import setup_seconds
+        built = setup_seconds().get("kernel_load", 0.0)
+    except ImportError:   # --kernels on a tree from before the tracer
+        built = _build.build_seconds
+    log(f"# build: {built:.1f} s (nvcc sm_90a, "
         f"{len(list(_build.SRC_DIR.glob('*.cu')))} sources)")
 
     counters = {"K1": (kfe.FusedFrontEnd, "launches"),

@@ -1,0 +1,21 @@
+"""rf_tap_us_per_block.bulk: device µs a block of the chain's stage
+`rf_tap` (the zoom-x1 or zoom-2^z RF panadapter tap), from the program's
+stage map of its CUDA graph (`t41x_torch.utils.tracing`): the traced
+window's device ops cut into the graph's replays by the map's op counts.
+None where the program keeps no stage map."""
+
+STAGE = "rf_tap"
+
+
+def read(ctx):
+    try:
+        from t41x_torch.utils import tracing
+    except ImportError:   # a program without the tracer
+        return None
+    if ctx.trace is None:
+        return None
+    r = tracing.attribute(ctx.trace.ops)
+    s = r["stages"].get(STAGE)
+    if not s:
+        return None
+    return 1e6 * s / (r["replays"] * int(ctx.mix["blocks_per_dispatch"]))

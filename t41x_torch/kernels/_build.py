@@ -17,8 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from t41x_torch.utils.tracing import setup_span
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -27,7 +28,6 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-Xcompiler", "-fPIC"]
 
 _lib = None
-build_seconds = None  # wall time of the last build or load, for reports
 
 
 def _nvcc() -> str:
@@ -80,14 +80,15 @@ def build(sources: list, name: str, verbose: bool = False) -> Path:
 def library(verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built on first call.  `verbose` adds
     `-Xptxas -v` to a fresh build and prints what the compiler says
-    (registers, shared memory, spills per kernel)."""
-    global _lib, build_seconds
+    (registers, shared memory, spills per kernel).  The build or load is
+    the set-up span `kernel_load` (`t41x_torch.utils.tracing`)."""
+    global _lib
     if _lib is not None:
         return _lib
-    t0 = time.perf_counter()
-    out = build(sorted(SRC_DIR.glob("*.cu")), "libt41x_kernels", verbose)
-    _lib = ctypes.CDLL(str(out))
-    build_seconds = time.perf_counter() - t0
+    with setup_span("kernel_load"):
+        out = build(sorted(SRC_DIR.glob("*.cu")), "libt41x_kernels",
+                    verbose)
+        _lib = ctypes.CDLL(str(out))
     return _lib
 
 

@@ -44,6 +44,7 @@ from t41x_torch.chain import ChannelParams
 from t41x_torch.dsp.spectrum import smeter_dbm
 from t41x_torch.io.runtime import BlockRing, LoadMeter
 from t41x_torch.radio import Radio
+from t41x_torch.utils import tracing
 from t41x_torch.utils.checkpoint import flatten_with_path, map_leaves
 
 # what the host reads after a block or a batch (t41x.runner's reads)
@@ -89,6 +90,7 @@ def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
+@tracing.setup_span("capture")
 def capture(fn, state, inputs: list, dev: torch.device):
     """`fn(state) -> (new_state, outputs dict)` captured as one CUDA graph
     on `dev`'s current stream (call it inside `torch.cuda.device(dev)`),
@@ -96,31 +98,37 @@ def capture(fn, state, inputs: list, dev: torch.device):
     replaces, so each replay continues from the last.  It first runs
     once on a clone of the state, on a side stream: the kernel build and
     every design cache or upload made on first use happen there, not
-    inside the capture.  Returns (graph, outputs), which the next
-    replay overwrites."""
+    inside the capture.  The capture leaves its stage map with the
+    tracer (`t41x_torch.utils.tracing`; the clones and copy-back are the
+    stage `writeback`).  Returns (graph, outputs), which the next replay
+    overwrites; the graph is a `tracing.Graph`, whose `replay()` is the
+    launch span."""
     side = _warmup_stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
         fn(_clone(state))
     torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    graph, stages = torch.cuda.CUDAGraph(), tracing.capturing(dev)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"), stages:
         new_state, out = fn(state)
-        live = _leaves(state)
-        ptrs = {t.untyped_storage().data_ptr() for t in live + list(inputs)}
+        with tracing.stage("writeback"):
+            live = _leaves(state)
+            ptrs = {t.untyped_storage().data_ptr()
+                    for t in live + list(inputs)}
 
-        def detached(t):
-            # a result that shares memory with a captured input is
-            # cloned before any state leaf is overwritten
-            return t.clone() if t.untyped_storage().data_ptr() in ptrs else t
+            def detached(t):
+                # a result that shares memory with a captured input is
+                # cloned before any state leaf is overwritten
+                return (t.clone() if t.untyped_storage().data_ptr() in ptrs
+                        else t)
 
-        new = [n if n is o else detached(n)
-               for n, o in zip(_leaves(new_state), live, strict=True)]
-        out = {k: detached(v) for k, v in out.items()}
-        for n, o in zip(new, live):
-            if n is not o:
-                o.copy_(n)
-    return graph, out
+            new = [n if n is o else detached(n)
+                   for n, o in zip(_leaves(new_state), live, strict=True)]
+            out = {k: detached(v) for k, v in out.items()}
+            for n, o in zip(new, live):
+                if n is not o:
+                    o.copy_(n)
+    return tracing.Graph(graph), out
 
 
 class _Graph:

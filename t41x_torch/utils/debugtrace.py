@@ -5,19 +5,18 @@ Re-expression of the reference's debug subsystem (tmr4/T41_SDR
 snapshot every config global before a loop pass, print whatever changed)
 and the memory/load telemetry (`memInfo:431`, `InfoBox.cpp:341-546`).
 
-`ConfigTracer` diffs any dict-able config between steps;
-`StageTimer` collects per-stage wall time (the jax.profiler complement
-for quick printf-style perf work).
+`ConfigTracer` diffs any dict-able config between steps.
 
 A copy of `t41x.utils.debugtrace`, so the port never imports JAX
-(`tests/test_torch_host_copies.py` pins the two equal).
+(`tests/test_torch_host_copies.py` pins the two equal), less
+`StageTimer`: host wall time around asynchronous GPU work measures the
+launches, not the work.  The port's stage times come from
+`t41x_torch.utils.tracing`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
-from contextlib import contextmanager
 
 
 def _to_dict(obj) -> dict:
@@ -70,29 +69,3 @@ class ConfigTracer:
         if diff:
             self.history.append(diff)
         return diff
-
-
-class StageTimer:
-    """Accumulating per-stage timer: with timer.stage("decimate"): ..."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> dict[str, dict]:
-        return {
-            name: {"total_s": t, "count": self.counts[name],
-                   "mean_ms": 1e3 * t / self.counts[name]}
-            for name, t in sorted(self.totals.items(),
-                                  key=lambda kv: -kv[1])
-        }
