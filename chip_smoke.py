@@ -31,9 +31,12 @@ failure):
    front end in its four variants (zoom None/0 x complex64/q15) and its
    zoom 2^z variant K1z (zoom 1, 3, 7 complex64, zoom 1 q15), K2 the
    AGC block, K3 the output interpolation, K4 the overlap-save matmul,
-   K5 the AGC recurrence of 64-sample blocks, K6 the SAM PLL, K7 the LMS
-   in NR and notch form, K8 the Kim NR gains, N1 the noise blanker (on
-   sparse impulses and on crowded impulse noise, its slow path), S1
+   B1 the overlap-save band-pass with the audio-spectrum tap (its FFTs
+   fused; no TPU counterpart: t41x runs two matmuls) at 1024 and at
+   4096 channels, K5 the AGC recurrence of 64-sample blocks, K6 the SAM
+   PLL, K7 the LMS in NR and notch form, K8 the Kim NR gains, N1 the
+   noise blanker (on sparse impulses and on crowded impulse noise, its
+   slow path), S1
    spectral NR's gain recursion at 2 and 16 hops a launch over 128 hops
    from the initial state, E1 the 14-band EQ at 1024 channels and at
    one over 16 blocks (N1, S1 and E1 have no TPU counterpart: t41x runs
@@ -42,10 +45,12 @@ failure):
    flushed before each, so that its inputs come from device memory), its
    wrapper and its plain version (CUDA events, median of 25 runs after
    warm-up, 5 for the plain versions of the per-sample recurrences), the
-   plain version's device time for K1, K3 and K4, and for K3 and K4 the
-   one PyTorch call that computes the same function (K3: a stride-8
-   `conv_transpose1d` with the two stages' composed taps; K4: the cuBLAS
-   product on the concatenated input; no other kernel has one).  K3 runs
+   plain version's device time for K1, K3, K4 and B1, and for K3, K4
+   and B1 the one PyTorch call that computes the same function (K3: a
+   stride-8 `conv_transpose1d` with the two stages' composed taps; K4:
+   the cuBLAS product on the concatenated input; B1: the torch.fft form
+   `osfilter.os_filter(..., return_spectrum=True)` on the scaled input;
+   no other kernel has one).  K3 runs
    on a contiguous row and on the real part of a complex64 row, as the
    chain calls it, and is timed on the latter.  K2, K5, K6, K7 and
    K8 must equal their plain versions bit for bit (K2 and K5 from random
@@ -221,6 +226,10 @@ N1 = ("t41x_torch/csrc/nb.cu", "t41x/dsp/nb.py:126")
 # recursion and the 14-band EQ as lax.scans (the lines given)
 S1 = ("t41x_torch/csrc/spectral_nr.cu", "t41x/dsp/nr.py:433")
 E1 = ("t41x_torch/csrc/eq.cu", "t41x/dsp/eq.py:110")
+# B1 replaces no TPU kernel: t41x runs the spectrum-tap band-pass as two
+# matmuls (the line given), for want of an FFT on the TPU
+B1 = ("t41x_torch/csrc/os_spectrum.cu", "t41x/dsp/osfilter.py:100")
+B1_CHANNELS = (N_CH, 4096)   # its rows: phase 3's and the bulk cells'
 # their rows, by the shapes the main paths give them: S1 at 2 hops a
 # call (`spectral_nr`, a block) and 16 (`spectral_nr_batch` over 8
 # blocks), E1 at 1024 channels and at one (`Radio.transmit_ssb`)
@@ -231,48 +240,48 @@ E1_ROWS = {"channels": "E1 eq 1024 x 256", "one": "E1 eq 1 x 256"}
 # must launch
 SPECS = {
     "rx": (dict(mode="usb", spectrum_zoom=0), "waveform",
-           ("K1", "K2", "K3")),
+           ("K1", "K2", "K3", "B1")),
     "rx_q15": (dict(mode="usb", spectrum_zoom=0, q15_input=True,
-                    clip_taps=True), "waveform", ("K1", "K2", "K3")),
+                    clip_taps=True), "waveform", ("K1", "K2", "K3", "B1")),
     "headless": (dict(mode="usb", spectrum_taps=False), "waveform",
                  ("K1", "K2", "K3", "K4")),
     "headless_q15": (dict(mode="usb", spectrum_taps=False, q15_input=True),
                      "waveform", ("K1", "K2", "K3", "K4")),
-    "am": (dict(mode="am"), "waveform", ("K1", "K2", "K3")),
+    "am": (dict(mode="am"), "waveform", ("K1", "K2", "K3", "B1")),
     "sam": (dict(mode="sam", f_lo=-3000.0, f_hi=3000.0), "adaptive",
-            ("K1", "K2", "K3", "K6")),
-    "nfm": (dict(mode="nfm"), "waveform", ("K1", "K2", "K3")),
+            ("K1", "K2", "K3", "K6", "B1")),
+    "nfm": (dict(mode="nfm"), "waveform", ("K1", "K2", "K3", "B1")),
     "nfm_headless": (dict(mode="nfm", spectrum_taps=False), "waveform",
                      ("K1", "K2", "K3", "K4")),
     "nr_kim": (dict(mode="usb", nr_mode=1), "waveform",
-               ("K1", "K2", "K3", "K8")),
+               ("K1", "K2", "K3", "K8", "B1")),
     "nr_spectral": (dict(mode="usb", nr_mode=2), "waveform",
-                    ("K1", "K2", "K3", "S1")),
+                    ("K1", "K2", "K3", "S1", "B1")),
     "nr_lms": (dict(mode="usb", nr_mode=3), "adaptive",
-               ("K1", "K2", "K3", "K7")),
+               ("K1", "K2", "K3", "K7", "B1")),
     "notch": (dict(mode="usb", notch_on=True), "adaptive",
-              ("K1", "K2", "K3", "K7")),
-    "ft8": (dict(mode="ft8"), "waveform", ("K1", "K2", "K3")),
+              ("K1", "K2", "K3", "K7", "B1")),
+    "ft8": (dict(mode="ft8"), "waveform", ("K1", "K2", "K3", "B1")),
     "psk31": (dict(mode="psk31"), "waveform", ("K1", "K3")),
     "zoom1": (dict(mode="usb", spectrum_zoom=1), "waveform",
-              ("K1", "K2", "K3")),
+              ("K1", "K2", "K3", "B1")),
     "zoom3": (dict(mode="usb", spectrum_zoom=3), "waveform",
-              ("K1", "K2", "K3")),
+              ("K1", "K2", "K3", "B1")),
     "zoom7": (dict(mode="usb", spectrum_zoom=7), "waveform",
-              ("K1", "K2", "K3")),
+              ("K1", "K2", "K3", "B1")),
     # the spec t41x.radio.Radio.chain builds from a default RadioConfig:
     # no output interpolation, so K3 does not run
     "radio_default": (dict(mode="usb", f_lo=200.0, f_hi=3000.0, agc_mode=2,
                            spectrum_zoom=1, interpolate_out=False),
-                      "waveform", ("K1", "K2")),
+                      "waveform", ("K1", "K2", "B1")),
     "zoom1_q15": (dict(mode="usb", spectrum_zoom=1, q15_input=True),
-                  "waveform", ("K1", "K2", "K3")),
+                  "waveform", ("K1", "K2", "K3", "B1")),
     "cw": (dict(mode="cw", cw_filter_index=2), "waveform",
-           ("K1", "K2", "K3")),
+           ("K1", "K2", "K3", "B1")),
     "eq": (dict(mode="usb", eq_on=True), "waveform",
-           ("K1", "K2", "K3", "E1")),
+           ("K1", "K2", "K3", "E1", "B1")),
     "nb": (dict(mode="usb", nb_on=True), "waveform",
-           ("K1", "K2", "K3", "N1")),
+           ("K1", "K2", "K3", "N1", "B1")),
 }
 # the slice-1 and -2 waveform specs, which run N_BLOCKS_SHORT blocks
 SHORT_SPECS = ("rx", "rx_q15", "headless", "headless_q15", "am", "nfm",
@@ -292,7 +301,8 @@ KERNEL_NAMES = {"K1": "frontend_kernel", "K2": "agc_kernel",
                 "K5": "agc_scan_kernel", "K6": "sam_kernel",
                 "K7": "xanr_kernel", "K8": "kim_gain_kernel",
                 "C1": "compress_kernel", "N1": "nb_kernel",
-                "S1": "spectral_gain_kernel", "E1": "eq_kernel"}
+                "S1": "spectral_gain_kernel", "E1": "eq_kernel",
+                "B1": "os_spectrum_kernel"}
 
 
 def k1_flops(n_ch: int, zoom=None, n: int = 2048, t1: int = 28,
@@ -324,6 +334,13 @@ def k4_flops(n_ch: int, half: int = 256) -> int:
     """fp32 operations of y = [h | x] @ W.T: 4 real FMAs per complex
     multiply-add, (C, half) x (half, 2 half)."""
     return 8 * n_ch * half * 2 * half
+
+
+def b1_flops(n_ch: int, n_fft: int = 512) -> int:
+    """fp32 operations of the spectrum-tap band-pass as FFTs: two n-point
+    complex FFTs (5 n log2 n each), the mask's complex product (6 n),
+    |X|^2 (3 n) times |mask|^2 (n), and the level scale (2 n/2)."""
+    return n_ch * (2 * 5 * n_fft * int(np.log2(n_fft)) + 11 * n_fft)
 
 
 def k3_flops(n_ch: int, n: int = 256, t1: int = 48, t2: int = 32) -> int:
@@ -1926,6 +1943,9 @@ def _kernels_of(kw: dict) -> set:
         need.add("K3")
     if not psk and not kw.get("spectrum_taps", True):
         need.add("K4")
+    if not psk and kw.get("spectrum_taps", True) and kw.get(
+            "use_matmul_osfilter", True):
+        need.add("B1")
     if kw.get("mode") == "sam":
         need.add("K6")
     if kw.get("nr_mode") == 3 or kw.get("notch_on"):
@@ -2149,6 +2169,7 @@ def main(argv: list[str]) -> int:
         from t41x_torch.chain import ChainSpec, RxChain, default_params
         from t41x_torch.demod import sam as sam_mod
         from t41x_torch.dsp import agc as agc_mod, nb as nb_mod, nr as nr_mod
+        from t41x_torch.dsp import osfilter
         from t41x_torch.dsp.spectrum import ZoomFFT
         from t41x_torch.kernels import _build
         from t41x_torch.kernels import agc as kagc
@@ -2170,6 +2191,11 @@ def main(argv: list[str]) -> int:
             from t41x_torch.kernels import spectral_nr as kspec
         else:   # --kernels on a tree from before S1 and E1
             keq = kspec = None
+        if root is None or (root / "t41x_torch/kernels/os_spectrum.py"
+                            ).exists():
+            from t41x_torch.kernels import os_spectrum as kb1
+        else:   # --kernels on a tree from before B1
+            kb1 = None
     except ImportError as e:
         print(f"chip_smoke: t41x_torch is not importable ({e}); run it "
               "from the repository root", file=sys.stderr)
@@ -2210,6 +2236,8 @@ def main(argv: list[str]) -> int:
     if kspec is not None:
         counters["S1"] = (kspec.spectral_gains, "launches")
         counters["E1"] = (keq.eq_block, "launches")
+    if kb1 is not None:
+        counters["B1"] = (kb1.os_spectrum, "launches")
 
     def reset_counts():
         for obj, attr in counters.values():
@@ -2324,7 +2352,7 @@ def main(argv: list[str]) -> int:
     rows = []
 
     def row(name, src, fn_k, fn_p, err, tol, flops, ins, outs,
-            plain_reps=REPS, plain_device=False, library=None):
+            plain_reps=REPS, plain_device=False, library=None, n_ch=N_CH):
         """One kernel's line: its device time (profiler), the wrapper's
         and the plain version's times (CUDA events), its bound from
         `flops` and the bytes of `ins` and `outs`, and the library call's
@@ -2354,7 +2382,7 @@ def main(argv: list[str]) -> int:
             + (f" ({plain_dev * 1e3:.2f} us on the device)"
                if plain_dev is not None else "")
             + (f", library call {lib_ms * 1e3:.2f} us" if lib_ms else "")
-            + f" per call ({N_CH} channels, {card})")
+            + f" per call ({n_ch} channels, {card})")
 
     def finish(extra: dict) -> int:
         """The kernels' JSON line, the phases' lines, the card's line and
@@ -2586,6 +2614,40 @@ def main(argv: list[str]) -> int:
         k4_flops(N_CH, C.FFT_LENGTH // 2), (s_k, x, W),
         kos.os_filter_matmul_kernel(s_k, x, W, *wp)[1], plain_device=True,
         library=lambda: xw @ W.T)
+
+    # B1: the spectrum-tap band-pass at the chain's level scale, from a
+    # random history over 3 streamed blocks, against the plain version
+    # (the two GEMMs) within float32 rounding of the largest output;
+    # timed at phase 3's 1024 channels and at the bulk cells' 4096, with
+    # the torch.fft form of the same stage as its library call
+    if kb1 is not None:
+        ops = (rx.tensors["os_F"], rx.tensors["os_W2"],
+               rx.tensors["os_mask_sq"])
+        tab, mask_t, sc = rx.tensors["os_tab"], rx.tensors["mask"], \
+            rx.vol_scale
+        # from a generator of its own: the later stimuli stay those of
+        # earlier trees
+        gen_b1 = torch.Generator(device=dev).manual_seed(21)
+        for n_ch in B1_CHANNELS:
+            s_k = s_p = cnoise(n_ch, C.FFT_LENGTH // 2, scale=0.3, g=gen_b1)
+            err = 0.0
+            for b in range(3):
+                x = cnoise(n_ch, C.FFT_LENGTH // 2, scale=0.3, g=gen_b1)
+                s_k, y_k, sp_k = kb1.os_spectrum(s_k, x, *ops, tab, sc)
+                s_p, y_p, sp_p = kb1.os_spectrum_plain(s_p, x, *ops, sc)
+                err = max(err, close("B1 y", y_k, y_p, 1e-4,
+                                     1e-5 * float(y_p.abs().max())))
+                close("B1 spectrum", sp_k, sp_p, 1e-4,
+                      1e-5 * float(sp_p.abs().max()))
+                close("B1 state", s_k, s_p, 0.0, 0.0)
+            row(f"B1 os_spectrum {n_ch}", B1,
+                lambda: kb1.os_spectrum(s_k, x, *ops, tab, sc),
+                lambda: kb1.os_spectrum_plain(s_k, x, *ops, sc), err,
+                "rtol 1e-4, atol 1e-5 of the largest output",
+                b1_flops(n_ch), (s_k, x),
+                kb1.os_spectrum(s_k, x, *ops, tab, sc), plain_device=True,
+                library=lambda: osfilter.os_filter(
+                    s_k, x * sc, mask_t, return_spectrum=True), n_ch=n_ch)
 
     # K6: a 120 Hz carrier, AM at 400 Hz, a level per channel, light
     # noise (tests/test_pallas_kernels.py's SAM stimulus).  Every

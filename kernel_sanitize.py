@@ -10,7 +10,8 @@ K1z at zoom 7 timed again and again.
 The first form runs each kernel row of `chip_smoke.py` phase 2 once at
 small odd channel counts (7 and 33; K1 zoom None/0 in complex64 and
 q15, K1z at zoom 1, 3 and 7 and zoom 1 in q15, K2, K3 on a contiguous
-row and on the real part of a complex64 row, K4, K5, K6, K7 in NR and
+row and on the real part of a complex64 row, K4, B1 (the spectrum-tap
+band-pass), K5, K6, K7 in NR and
 notch form, K8, C1, the transmit chain's compressor of phase 6, N1,
 the noise blanker, on sparse and on crowded impulses
 (`chip_smoke.nb_stimulus`), S1, spectral NR's gains at 2 and 16 hops, and E1,
@@ -37,7 +38,8 @@ reports an error or does not run; then, with --repeat, the second form.
 builds a second library from the same sources in which every warp,
 after each `__syncthreads()` and `cluster.sync()` and after each wait
 at or arrival on a named barrier (`named_bar_sync`, `named_bar_arrive`:
-C1's two warp roles meet there), spins for 0-2047 cycles chosen by its
+C1's two warp roles meet there, and B1's channels, two warps each),
+spins for 0-2047 cycles chosen by its
 block, its warp and the call site, and every lane, after each
 `warp_sync()` (N1's lanes exchange a frame's scratch there: the run
 list, the mask words and the input copies before the walk, the
@@ -128,6 +130,7 @@ def kernel_rows(dev, ch: int, gen):
     from t41x_torch.kernels import interp as kint
     from t41x_torch.kernels import nr_gain as knr
     from t41x_torch.kernels import os_filter as kos
+    from t41x_torch.kernels import os_spectrum as kb1
     from t41x_torch.kernels import sam as ksam
     from t41x_torch.kernels import xanr as kxanr
     from t41x_torch.kernels import spectral_nr as kspec
@@ -190,6 +193,10 @@ def kernel_rows(dev, ch: int, gen):
     x4 = cnoise(ch, C.FFT_LENGTH // 2, scale=0.3)
     rows.append(("K4 os_filter",
                  lambda: kos.os_filter_matmul_kernel(s4, x4, W, *wp)))
+    b1_ops = tuple(rx.tensors[k] for k in ("os_F", "os_W2", "os_mask_sq",
+                                           "os_tab"))
+    rows.append(("B1 os_spectrum",
+                 lambda: kb1.os_spectrum(s4, x4, *b1_ops, rx.vol_scale)))
 
     sp = sam_mod.sam_params()
     sst = sam_mod.sam_state((ch,), dev)
@@ -264,13 +271,15 @@ def launches() -> int:
     from t41x_torch.kernels import nb as knb
     from t41x_torch.kernels import nr_gain as knr
     from t41x_torch.kernels import os_filter as kos
+    from t41x_torch.kernels import os_spectrum as kb1
     from t41x_torch.kernels import sam as ksam
     from t41x_torch.kernels import xanr as kxanr
     from t41x_torch.kernels import eq as keq
     from t41x_torch.kernels import spectral_nr as kspec
     return (kfe.FusedFrontEnd.launches + kagc.agc_block.launches
             + kagc.agc_scan.launches + kint.FusedInterp.launches
-            + kos.os_filter_matmul_kernel.launches + ksam.sam_block.launches
+            + kos.os_filter_matmul_kernel.launches + kb1.os_spectrum.launches
+            + ksam.sam_block.launches
             + kxanr.xanr_block.launches + knr.kim_gains.launches
             + kcomp.launch.launches + knb.launch.launches
             + kspec.spectral_gains.launches + keq.eq_block.launches)

@@ -211,8 +211,13 @@ class RxChain:
             from t41x_torch.kernels.frontend import FusedFrontEnd
             from t41x_torch.kernels.interp import FusedInterp
             from t41x_torch.kernels.os_filter import pack_w
+            from t41x_torch.kernels.os_spectrum import tables
             # K4 reads W as k-major real and imaginary planes
             self.tensors["os_Wp"] = pack_w(self.tensors["os_W"])
+            if spec.spectrum_taps:
+                # B1's twiddles and mask, designed in float64
+                self.tensors["os_tab"] = torch.from_numpy(
+                    tables(mask)).to(self.device)
             if self.zoomfft is not None:
                 zkw = dict(zoom=spec.spectrum_zoom,
                            zoom_sos=(self.zoomfft.iir_b,
@@ -418,9 +423,8 @@ class RxChain:
                     # audio (Process.cpp:765-816)
                     x = audio.to(torch.complex64)
             with stage("bandpass"):
-                if spec.mode != "nfm":
-                    x = x * self.vol_scale
-                osf, y, spectrum = self._os_filter(state.osf, x)
+                scale = 1.0 if spec.mode == "nfm" else self.vol_scale
+                osf, y, spectrum = self._os_filter(state.osf, x, scale)
             with stage("agc"):
                 agc_state, y = agc_mod.agc_apply(
                     self.agc_params, state.agc, y,
@@ -451,11 +455,19 @@ class RxChain:
                     use_kernels=spec.use_kernels)
         return state._replace(**upd), audio, outputs
 
-    def _os_filter(self, osf, x):
-        """The overlap-save band-pass; returns (osf, y, audio spectrum or
-        None)."""
+    def _os_filter(self, osf, x, scale: float = 1.0):
+        """The overlap-save band-pass of `scale * x` (x as it is where the
+        scale is 1); returns (osf, y, audio spectrum or None)."""
         spec = self.spec
         t = self.tensors
+        if spec.use_matmul_osfilter and spec.spectrum_taps \
+                and spec.use_kernels:
+            # B1 scales x in the launch
+            from t41x_torch.kernels.os_spectrum import os_spectrum
+            return os_spectrum(osf, x, t["os_F"], t["os_W2"],
+                               t["os_mask_sq"], t["os_tab"], scale)
+        if scale != 1.0:
+            x = x * scale
         if not spec.use_matmul_osfilter:
             return osfilter.os_filter(osf, x, t["mask"], return_spectrum=True)
         if spec.spectrum_taps:

@@ -196,7 +196,8 @@ def test_k3_bound_arithmetic_matches_the_hand_count():
 def test_jittered_sources_spin_after_every_barrier():
     """kernel_sanitize.py's race check builds every source with a spin
     after each block and cluster barrier and each call of a named-barrier
-    helper (C1's four: its two roles' waits and arrivals), and a lane's
+    helper (C1's four: its two roles' waits and arrivals; B1's four: a
+    channel's two warps at each exchange), and a lane's
     own spin after each call of N1's warp barrier helper (its two
     `warp_sync()`: before and after the predictors' walk, where a
     frame's lanes exchange its scratch).  S1 has no site: no shared
@@ -225,7 +226,7 @@ def test_jittered_sources_spin_after_every_barrier():
         total += sites
         named += calls
         lanes += warp
-    assert named == 4 and lanes == 2
+    assert named == 8 and lanes == 2
     assert total >= 30
 
 
@@ -240,7 +241,8 @@ def test_chip_scripts_never_import_jax():
         "import chip_smoke, kernel_ab, kernel_sanitize, kernel_study\n"
         "g = torch.Generator().manual_seed(0)\n"
         "rows = kernel_sanitize.kernel_rows(torch.device('cpu'), 3, g)\n"
-        "assert len(rows) == 25, len(rows)\n"  # K1-K8, C1, N1 (2), S1, E1 (3)
+        "assert len(rows) == 26, len(rows)\n"  # K1-K8, B1, C1, N1 (2), S1,
+        # E1 (3)
         "bad = [m for m in sys.modules if m == 't41x' or "
         "m.startswith(('t41x.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n")
